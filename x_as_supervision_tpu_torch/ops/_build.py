@@ -1,0 +1,97 @@
+"""Builds the port's CUDA sources and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
+header, so ``nvcc`` builds it in seconds. It is compiled for ``sm_90a`` into
+``build/kernels/<name>-<hash>.so`` under the repository root at first use;
+the hash covers the source and the flags, so an edited source never loads a
+stale library. A failed build raises. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for path in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+def _library_path(name: str) -> tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return src, BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(*names: str) -> None:
+    """Compile the named sources that are not built yet, one ``nvcc`` each,
+    all started together. Waits for every compiler it started, then raises
+    on the first that failed."""
+    jobs = []
+    for name in names:
+        src, lib = _library_path(name)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((proc, cmd, tmp, lib))
+    failures = []
+    for proc, cmd, tmp, lib in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)} -> {proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        if name not in _libs:
+            build(name)
+            lib = ctypes.CDLL(str(_library_path(name)[1]))
+            lib.xas_error_string.argtypes = [ctypes.c_int]
+            lib.xas_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (a refused launch
+    never runs, and synchronizing would not report it)."""
+    if err != 0:
+        msg = lib.xas_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on the tensor's device, as a C pointer."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,156 @@
+"""Detector weights: the JAX package's variables -> the port's state_dict,
+and seeded random weights conditioned for a stable eval forward.
+
+The JAX detector's variables are ``{'params': ..., 'batch_stats': ...}``
+trees under ``net/backbone`` (``Conv_0``, ``_BN_0``, ``Bottleneck_i`` or
+``BasicBlock_i`` with ``Conv_j`` and ``_BN_j/BatchNorm_0``) and ``net/head``
+(``ConvTranspose_i``, ``_BN_i``, ``Conv_0``). They arrive as nested dicts of
+arrays, or as a flat ``.npz`` whose keys are ``params/<path>`` and
+``batch_stats/<path>`` (the format of the JAX package's
+tools/convert_torch_resnet.py). The port's keys are torchvision's plus
+``head.features.N``, under ``net.``.
+
+Conversions: conv kernels HWIO -> OIHW; a flax ConvTranspose kernel is the
+torch ConvTranspose2d(k4, s2, p1) weight spatially flipped and transposed, so
+its inverse is a flip, then a permute to (Cin, Cout, kh, kw).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from .models.resnet import RESNET_SPEC, BasicBlock, Bottleneck
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32, order="C"))
+
+
+def _conv(k) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(k), (3, 2, 0, 1)))  # HWIO -> OIHW
+
+
+def _conv_transpose(k) -> torch.Tensor:
+    k = np.asarray(k)[::-1, ::-1]  # undo the spatial flip
+    return _t(np.transpose(k, (2, 3, 0, 1)))  # (kh, kw, Cin, Cout) -> torch
+
+
+def _bn(sd: dict, prefix: str, params: dict, stats: dict) -> None:
+    p, s = params["BatchNorm_0"], stats["BatchNorm_0"]
+    sd[prefix + ".weight"] = _t(p["scale"])
+    sd[prefix + ".bias"] = _t(p["bias"])
+    sd[prefix + ".running_mean"] = _t(s["mean"])
+    sd[prefix + ".running_var"] = _t(s["var"])
+    sd[prefix + ".num_batches_tracked"] = torch.tensor(0)
+
+
+def _depth(params: dict) -> int:
+    for kind, name in (("bottleneck", "Bottleneck"), ("basic", "BasicBlock")):
+        blocks = sum(1 for k in params if k.startswith(name + "_"))
+        for depth, (k, counts) in RESNET_SPEC.items():
+            if blocks and k == kind and sum(counts) == blocks:
+                return depth
+    raise ValueError("backbone tree matches no ResNet depth")
+
+
+def state_dict_from_variables(variables: dict) -> dict:
+    """JAX detector variables (nested dicts of arrays) -> the port's
+    detector state_dict (``net.backbone.*``, ``net.head.*``)."""
+    params = variables["params"]["net"]
+    stats = variables["batch_stats"]["net"]
+    bp, bs = params["backbone"], stats["backbone"]
+    kind, counts = RESNET_SPEC[_depth(bp)]
+    sd: dict = {"net.backbone.conv1.weight": _conv(bp["Conv_0"]["kernel"])}
+    _bn(sd, "net.backbone.bn1", bp["_BN_0"], bs["_BN_0"])
+    name = "BasicBlock" if kind == "basic" else "Bottleneck"
+    n_convs = 2 if kind == "basic" else 3
+    flax_block = 0
+    for stage, blocks in enumerate(counts):
+        for i in range(blocks):
+            mod = f"{name}_{flax_block}"
+            pre = f"net.backbone.layer{stage + 1}.{i}"
+            for c in range(n_convs):
+                sd[f"{pre}.conv{c + 1}.weight"] = _conv(
+                    bp[mod][f"Conv_{c}"]["kernel"])
+                _bn(sd, f"{pre}.bn{c + 1}", bp[mod][f"_BN_{c}"],
+                    bs[mod][f"_BN_{c}"])
+            if f"Conv_{n_convs}" in bp[mod]:
+                sd[f"{pre}.downsample.0.weight"] = _conv(
+                    bp[mod][f"Conv_{n_convs}"]["kernel"])
+                _bn(sd, f"{pre}.downsample.1", bp[mod][f"_BN_{n_convs}"],
+                    bs[mod][f"_BN_{n_convs}"])
+            flax_block += 1
+
+    hp, hs = params["head"], stats["head"]
+    layer = 0
+    while f"ConvTranspose_{layer}" in hp:
+        sd[f"net.head.features.{3 * layer}.weight"] = _conv_transpose(
+            hp[f"ConvTranspose_{layer}"]["kernel"])
+        _bn(sd, f"net.head.features.{3 * layer + 1}", hp[f"_BN_{layer}"],
+            hs[f"_BN_{layer}"])
+        layer += 1
+    sd[f"net.head.features.{3 * layer}.weight"] = _conv(hp["Conv_0"]["kernel"])
+    sd[f"net.head.features.{3 * layer}.bias"] = _t(hp["Conv_0"]["bias"])
+    return sd
+
+
+def load_npz(path: str) -> dict:
+    """A flat ``.npz`` of detector variables -> the port's state_dict."""
+    variables: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = variables
+            *parents, leaf = key.split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+    return state_dict_from_variables(variables)
+
+
+def init_weights(det: nn.Module, seed: int) -> None:
+    """Seeded random weights: He-normal (fan-out) convs, as the JAX package
+    initializes them; BN scale 1, bias 0, fresh statistics; zero conv bias."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in det.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = torch.empty(m.weight.shape, dtype=torch.float32)
+                nn.init.kaiming_normal_(w, mode="fan_out",
+                                        nonlinearity="relu", generator=gen)
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+
+def condition_for_eval(det: nn.Module, images: torch.Tensor,
+                       branch_gamma: float = 0.1) -> None:
+    """Make random weights give a stable eval forward.
+
+    An untrained 50-layer eval forward with fresh running statistics
+    (mean 0, var 1) amplifies rounding until its outputs are noise. So the
+    last BN scale of each residual branch is set to `branch_gamma`, and every
+    BN's running statistics become the batch statistics of one train-mode
+    forward over `images` (CPU only: train mode runs the plain layers)."""
+    if images.device.type != "cpu":
+        raise ValueError("condition_for_eval runs on the CPU")
+    bns = [m for m in det.modules() if isinstance(m, nn.BatchNorm2d)]
+    with torch.no_grad():
+        for m in det.modules():
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.fill_(branch_gamma)
+            elif isinstance(m, BasicBlock):
+                m.bn2.weight.fill_(branch_gamma)
+        for bn in bns:
+            bn.reset_running_stats()
+            bn.momentum = None  # cumulative average: one batch = its stats
+        det.train()
+        try:
+            det.net(images)
+        finally:
+            for bn in bns:
+                bn.momentum = 0.1
+            det.eval()
