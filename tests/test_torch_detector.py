@@ -95,8 +95,8 @@ def test_fused_bottleneck_matches_jax_unfused(monkeypatch):
                     variables["batch_stats"][f"_BN_{i}"])
     block.load_state_dict(sd)
     calls = []
-    real = R.fused_bn_relu_conv
-    monkeypatch.setattr(R, "fused_bn_relu_conv",
+    real = R.fused_link
+    monkeypatch.setattr(R, "fused_link",
                         lambda *a: calls.append(1) or real(*a))
     with torch.no_grad():
         got = block(nchw(x))

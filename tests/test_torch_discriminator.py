@@ -1,0 +1,124 @@
+"""The port's GCNDiscriminatorDecouple (x_as_supervision_tpu_torch/models/
+discriminator.py) against the JAX package's, with flax-initialized weights
+carried through weights.py: outputs and gradients with the header's dropout
+off (the frameworks draw different random bits), and the port's dropout on
+its own: keep rate 0.8, kept values scaled by 1/0.8, driven by an explicit
+generator. fp32.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from x_as_supervision_tpu.models.composed import cal_links as jax_links
+from x_as_supervision_tpu.models.discriminator import (
+    build_discriminator as jax_build,
+)
+from x_as_supervision_tpu.models.discriminator import (
+    positional_encoding as jax_pe,
+)
+from x_as_supervision_tpu.models.discriminator import (
+    skeleton_adjacency as jax_adj,
+)
+from x_as_supervision_tpu_torch import weights
+from x_as_supervision_tpu_torch.models.composed import cal_links
+from x_as_supervision_tpu_torch.models.discriminator import (
+    FFNHeader,
+    build_discriminator,
+    positional_encoding,
+    skeleton_adjacency,
+)
+
+PARENTS = [0, 0, 1, 2, 0, 4, 5, 0, 17, 8, 9, 17, 11, 12, 17, 14, 15, 7]
+PARAMS = dict(name="res_sage_gcn_decouple", input_dim=16, hidden_dim=16,
+              output_dim=16, num_node=18, disc_sup_dim=3, num_layers=2,
+              use_self_loop=True, use_pe=True)
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    parents, children = jax_links(PARENTS, list(range(17)), extension=False)
+    jdisc = jax_build(PARAMS, parents, children)
+    kps = np.random.default_rng(0).normal(0, 0.3, (6, 18, 3)).astype(
+        np.float32)
+    params = _np(jdisc.init(jax.random.PRNGKey(0), jnp.asarray(kps),
+                            train=False)["params"])
+    disc = build_discriminator(PARAMS, *cal_links(PARENTS, list(range(17)),
+                                                  extension=False))
+    disc.load_state_dict(weights.discriminator_state_dict(params))
+    return jdisc, params, disc, kps
+
+
+def test_graph_constants_match_jax():
+    parents, children = cal_links(PARENTS, list(range(17)), extension=False)
+    np.testing.assert_array_equal(
+        skeleton_adjacency(parents, children, 18, 1.0),
+        jax_adj(parents, children, 18, 1.0))
+    np.testing.assert_array_equal(positional_encoding(18, 3),
+                                  jax_pe(18, 3))
+
+
+def test_forward_and_gradients_match_jax_with_dropout_off(pair):
+    jdisc, params, disc, kps = pair
+    r = np.random.default_rng(1).normal(size=(6, 1)).astype(np.float32)
+
+    def loss(p, k):
+        out = jdisc.apply({"params": p}, k, train=False)
+        return (out * r).sum(), out
+
+    (_, want), (gp, gk) = jax.value_and_grad(loss, argnums=(0, 1),
+                                             has_aux=True)(params,
+                                                           jnp.asarray(kps))
+    disc.train()
+    disc.header.p_dropout = 0.0
+    kt = torch.from_numpy(kps).requires_grad_(True)
+    out = disc(kt)
+    names = [n for n, _ in disc.named_parameters()]
+    grads = torch.autograd.grad((out * torch.from_numpy(r)).sum(),
+                                [kt] + list(disc.parameters()))
+    # fp32 through two SAGE streams and the FFN header
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(gk), rtol=1e-4,
+                               atol=1e-6)
+    want_g = weights.discriminator_state_dict(_np(gp))
+    assert sorted(names) == sorted(want_g)
+    for n, g in zip(names, grads[1:]):
+        w = want_g[n].numpy()
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-6 * max(np.abs(w).max(), 1.0),
+                                   err_msg=n)
+
+
+def test_dropout_keeps_080_and_scales_by_its_inverse():
+    head = FFNHeader(8, hidden=4096, p_dropout=0.2).train()
+    with torch.no_grad():
+        head.dense0.weight.zero_()
+        head.dense0.bias.fill_(1.0)  # every hidden unit is exactly 1
+    captured = []
+    head.dense1.register_forward_pre_hook(lambda m, a: captured.append(a[0]))
+    x = torch.zeros(16, 8)
+    head(x, torch.Generator().manual_seed(0))
+    h = captured[0]
+    kept = h != 0
+    assert abs(kept.float().mean().item() - 0.8) < 0.01
+    torch.testing.assert_close(h[kept], torch.full_like(h[kept], 1 / 0.8))
+    # the same generator seed draws the same mask; another seed another
+    head(x, torch.Generator().manual_seed(0))
+    head(x, torch.Generator().manual_seed(1))
+    assert torch.equal(captured[1], h) and not torch.equal(captured[2], h)
+    head.eval()
+    head(x, torch.Generator().manual_seed(0))
+    assert torch.equal(captured[3], torch.ones_like(h))  # no dropout in eval
+
+
+def test_other_discriminators_are_not_ported():
+    for name in ("res_gcn", "res_sage_gcn", "simple_gcn"):
+        with pytest.raises(NotImplementedError):
+            build_discriminator(dict(PARAMS, name=name), [0], [1])

@@ -14,12 +14,21 @@ import pytest
 import torch
 
 from x_as_supervision_tpu_torch.models.detector import build_detector
+from x_as_supervision_tpu_torch.ops.conv3x3 import (
+    conv3x3,
+    conv3x3_kernel,
+    conv3x3_plain,
+)
 from x_as_supervision_tpu_torch.ops.conv_bn import (
     bn_relu_conv_plain,
     fused_bn_relu_conv,
+    fused_link,
 )
 from x_as_supervision_tpu_torch.ops.integral_kernel import (
     integral_marginals,
+    marginals,
+    marginals_backward,
+    marginals_backward_plain,
     marginals_plain,
 )
 from x_as_supervision_tpu_torch import weights
@@ -107,6 +116,113 @@ def test_link_kernel_matches_plain(dev, dtype, b, c, co, h, w, shift_mean):
     assert ((stats - rstats).abs() <= 1e-5 * mags).all()
 
 
+def _bwd_case(dev, shape, dtype):
+    b, k, d, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = (torch.randn((b, k * d, h, w), generator=gen, device=dev) * 3
+         ).to(dtype)
+    gs = [torch.randn((b, k, n), generator=gen, device=dev) for n in (w, h, d)]
+    return x, gs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 3, 8, 8, 8),
+    (1, 2, 5, 6, 16),    # D, H not powers of two
+    (2, 18, 64, 64, 64),  # the flagship shape at batch 2
+])
+def test_marginals_backward_kernel_matches_plain(dev, dtype, shape):
+    x, (gx, gy, gz) = _bwd_case(dev, shape, dtype)
+    k = shape[1]
+    ax, ay, az, m, z = integral_marginals(x, k)
+    before = marginals_backward.launches
+    got = marginals_backward(x, m, z, ax, ay, az, gx, gy, gz, k)
+    torch.cuda.synchronize()
+    assert marginals_backward.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = marginals_backward_plain(x, gx, gy, gz, k)
+    scale = want.float().abs().max().item()
+    # fp32: the same products summed in another order; bf16: both round the
+    # fp32 gradient to bf16, which another order can move by one step
+    tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_marginals_autograd_matches_plain(dev, dtype):
+    x, (gx, gy, gz) = _bwd_case(dev, (2, 4, 8, 16, 16), dtype)
+    xg = x.clone().requires_grad_(True)
+    ax, ay, az, _, _ = marginals(xg, 4)
+    (got,) = torch.autograd.grad((ax, ay, az), xg, (gx, gy, gz))
+    want = marginals_backward_plain(x, gx, gy, gz, 4)
+    tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def _conv_case(dev, b, cin, cout, h, w, dtype, seed=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, cin, h, w), generator=gen, device=dev).to(dtype)
+    wt = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (2 / (9 * cin)) ** 0.5
+    bias = torch.randn(cout, generator=gen, device=dev) * 0.1
+    return x, wt, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cin,cout,h,w,stride", [
+    (2, 1, 32, 64, 64, 1),     # Cin = 1, the first physique conv
+    (2, 32, 1, 64, 64, 1),     # Cout = 1, the last
+    (2, 32, 64, 64, 64, 2),    # stride 2
+    (2, 64, 128, 32, 32, 2),
+    (2, 128, 128, 16, 16, 1),
+    (3, 5, 7, 19, 37, 1),      # ragged tiles, channels not a block multiple
+    (1, 6, 3, 21, 35, 2),      # odd sides at stride 2
+])
+def test_conv3x3_kernel_matches_plain(dev, dtype, b, cin, cout, h, w, stride):
+    x, wt, bias = _conv_case(dev, b, cin, cout, h, w, dtype)
+    before = conv3x3_kernel.launches
+    got = conv3x3_kernel(x, wt, bias, stride)
+    torch.cuda.synchronize()
+    assert conv3x3_kernel.launches == before + 1
+    want = conv3x3_plain(x, wt, bias, stride)
+    assert got.dtype == dtype and got.shape == want.shape
+    ymax = want.float().abs().max().item()
+    # fp32: the same fp32 products summed in another order over 9*Cin terms;
+    # bf16: y is then rounded to bf16, one step (2^-8) apart at most
+    tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * ymax
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv3x3_autograd_matches_plain(dev, stride):
+    x, wt, bias = _conv_case(dev, 2, 8, 16, 20, 24, torch.float32)
+    g = torch.randn((2, 16, (20 - 1) // stride + 1, (24 - 1) // stride + 1),
+                    device=dev)
+    args = [t.clone().requires_grad_(True) for t in (x, wt, bias)]
+    before = conv3x3_kernel.launches
+    got = torch.autograd.grad(conv3x3(*args, stride), args, g)
+    # forward, plus the stride-1 input gradient
+    assert conv3x3_kernel.launches == before + (2 if stride == 1 else 1)
+    args = [t.clone().requires_grad_(True) for t in (x, wt, bias)]
+    want = torch.autograd.grad(conv3x3_plain(*args, stride), args, g)
+    for a, r in zip(got, want):
+        # fp32 sums of up to B*H*W terms in another order
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
+
+
+def test_link_autograd_matches_plain(dev):
+    x, wt, scale, shift = _link_case(dev, 2, 64, 64, 8, 8, torch.float32)
+    gy = torch.randn((2, 64, 8, 8), device=dev)
+    gs = torch.randn((2, 64), device=dev) * 1e-3
+    args = [t.clone().requires_grad_(True) for t in (x, wt, scale, shift)]
+    y, stats = fused_link(*args)
+    got = torch.autograd.grad((y, stats), args, (gy, gs))
+    args = [t.clone().requires_grad_(True) for t in (x, wt, scale, shift)]
+    y, stats = bn_relu_conv_plain(*args)
+    want = torch.autograd.grad((y, stats), args, (gy, gs))
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
+
+
 def test_kernels_raise_on_unsupported_cuda_input(dev):
     x = torch.zeros((1, 48, 4, 4), device=dev)  # Cin % 32 != 0
     with pytest.raises(ValueError):
@@ -118,6 +234,24 @@ def test_kernels_raise_on_unsupported_cuda_input(dev):
     with pytest.raises(ValueError):  # fp16 has no kernel
         integral_marginals(torch.zeros((1, 8, 4, 4), device=dev,
                                        dtype=torch.float16), 1)
+    x = torch.zeros((1, 8, 4, 12), device=dev, dtype=torch.bfloat16)
+    ones = torch.ones((1, 1), device=dev)
+    with pytest.raises(ValueError):  # bf16 needs W % 8 == 0
+        marginals_backward(x, ones, ones, torch.zeros((1, 1, 12), device=dev),
+                           torch.zeros((1, 1, 4), device=dev),
+                           torch.zeros((1, 1, 8), device=dev),
+                           torch.zeros((1, 1, 12), device=dev),
+                           torch.zeros((1, 1, 4), device=dev),
+                           torch.zeros((1, 1, 8), device=dev), 1)
+    with pytest.raises(ValueError):  # fp16 has no conv3x3 kernel
+        conv3x3_kernel(torch.zeros((1, 2, 4, 4), device=dev,
+                                   dtype=torch.float16),
+                       torch.zeros((3, 2, 3, 3), device=dev),
+                       torch.zeros(3, device=dev))
+    with pytest.raises(ValueError):  # stride 3
+        conv3x3_kernel(torch.zeros((1, 2, 4, 4), device=dev),
+                       torch.zeros((3, 2, 3, 3), device=dev),
+                       torch.zeros(3, device=dev), 3)
 
 
 def test_detector_on_card_matches_cpu(dev):

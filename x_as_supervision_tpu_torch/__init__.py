@@ -2,16 +2,31 @@
 for NVIDIA Hopper (H100).
 
 The JAX package beside it is the reference; this package imports nothing of
-it, nor JAX. What is ported so far is the serving path:
+it, nor JAX. What is ported so far is the serving path and the flagship
+fused GAN training step:
 
   serve.py    PoseEstimator: preprocess, batched detector forward, pixels,
               patch -> world lift
   infer.py    the inference CLI (python -m x_as_supervision_tpu_torch.infer)
-  models/     ResNet backbone + deconv head, integral detectors
-  ops/        integral decode, fused BN->ReLU->conv3x3 link, geometry, and
+  train/      GAN spec factory, train state and fused step, trainer and its
+              CLI (python -m x_as_supervision_tpu_torch.train)
+  models/     ResNet backbone + deconv head, integral detectors (eval and
+              train), physique net, discriminator, composed GAN losses
+  ops/        integral decode and its gradient, fused BN->ReLU->conv3x3
+              link, small-channel conv3x3, renderer and geometry, losses, and
               the ctypes bindings of the CUDA kernels in csrc/
-  weights.py  JAX detector variables -> state_dict; seeded weights
+  data/       the synthetic multi-camera pose fixture
+  weights.py  JAX variables -> state_dicts; seeded weights
   config.py   YAML config loading
 """
 
+import torch as _torch
+
 __version__ = "0.1.0"
+
+# PyTorch's CPU build can compute one thread's share of the first vectorized
+# math call of a process (exp, log, sqrt, tanh, ...) at reduced accuracy,
+# about 1.5e-4 relative, when several threads make that first call at once.
+# One small call on this thread first initializes that code, so the CPU path
+# (every kernel's plain version) computes in full fp32 from its first call.
+_torch.exp(_torch.zeros(8))

@@ -1,1 +1,2 @@
-"""Detector networks of the port."""
+"""Networks of the port: the detector, the physique net and the
+discriminator, and the composed GAN losses."""

@@ -20,10 +20,12 @@ _NOT_PORTED = ("phase_head", "subpixel", "s2d_stem")
 
 class KPDetector3D(nn.Module):
     def __init__(self, num_kp: int = 18, depth_dim: int = 64,
-                 num_layers: int = 50, fp32_logits: bool = True):
+                 num_layers: int = 50, fp32_logits: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_kp = num_kp
-        self.net = ResPoseNet(num_kp, depth_dim, num_layers, fp32_logits)
+        self.net = ResPoseNet(num_kp, depth_dim, num_layers, fp32_logits,
+                              dtype)
 
     def forward(self, img) -> integral.IntegralDecode:
         return integral.decode_single(self.net(img), self.num_kp)
@@ -35,25 +37,30 @@ class KPDetector3DMulti(nn.Module):
 
     def __init__(self, num_kp: int = 18, depth_dim: int = 64,
                  num_hypo: int = 3, neighbor_size: int = 15,
-                 num_layers: int = 50, fp32_logits: bool = True):
+                 num_layers: int = 50, fp32_logits: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_kp = num_kp
         self.num_hypo = num_hypo
         self.neighbor_size = neighbor_size
-        self.net = ResPoseNet(num_kp, depth_dim, num_layers, fp32_logits)
+        self.net = ResPoseNet(num_kp, depth_dim, num_layers, fp32_logits,
+                              dtype)
 
     def forward(self, img) -> integral.IntegralDecode:
         return integral.decode_multi(self.net(img), self.num_kp,
                                      self.num_hypo, self.neighbor_size)
 
 
-def build_detector(detector_params: dict, dtype=torch.float32) -> nn.Module:
-    """Detector from a config's ``detector_params``, in eval mode.
+def build_detector(detector_params: dict, dtype=torch.float32,
+                   train: bool = False) -> nn.Module:
+    """Detector from a config's ``detector_params``, in eval mode, or in
+    train mode with ``train=True``.
 
-    Convolutions hold and compute in `dtype`; BatchNorm keeps fp32
-    parameters and statistics, as in the JAX package. The JAX opt-ins
-    ``use_pallas`` and ``fuse_bn`` select nothing here: on the card the
-    port always runs its kernels."""
+    Parameters and BatchNorm statistics are fp32; the forward computes in
+    `dtype` (models/resnet.py says where it is cast in), as the JAX
+    package's ``param_dtype=float32, dtype=dtype``. The JAX opt-ins
+    ``use_pallas`` and ``fuse_bn`` select nothing here: on the card the port
+    always runs its kernels."""
     for key in _NOT_PORTED:
         if detector_params.get(key):
             raise NotImplementedError(f"detector_params.{key} is not ported")
@@ -64,6 +71,7 @@ def build_detector(detector_params: dict, dtype=torch.float32) -> nn.Module:
         depth_dim=detector_params["depth_dim"],
         num_layers=detector_params.get("num_layers", 50),
         fp32_logits=detector_params.get("fp32_logits", True),
+        dtype=dtype,
     )
     if detector_params["name"] == "resnet_multi":
         det = KPDetector3DMulti(num_hypo=detector_params["num_hypo"],
@@ -71,8 +79,4 @@ def build_detector(detector_params: dict, dtype=torch.float32) -> nn.Module:
                                 **common)
     else:
         det = KPDetector3D(**common)
-    det.to(dtype)
-    for m in det.modules():
-        if isinstance(m, nn.BatchNorm2d):
-            m.float()
-    return det.eval()
+    return det.train(train)

@@ -1,20 +1,31 @@
 """ResNet backbone + deconvolution head of the integral pose detector,
-ported from the JAX package's models/resnet.py for eval-mode serving.
+ported from the JAX package's models/resnet.py, in eval and train mode.
 
 Parameter names follow torchvision's ResNet (conv1, bn1, layer1.0.conv1, ...,
 layer1.0.downsample.0) and the reference head (head.features.N), so a
 detector's state_dict converts to the JAX package's tree with its
 tools/convert_torch_resnet.py:convert_full_detector.
 
-BatchNorm is ``nn.BatchNorm2d`` (eps 1e-5) with fp32 parameters and
-statistics whatever the working dtype, as in the JAX package.
+Types, as the JAX package's ``param_dtype=float32, dtype=<working type>``:
+every parameter and BatchNorm statistic is fp32. The working type is cast in
+at two points: the backbone casts its input images to ``dtype``, and each
+conv casts its fp32 weight (and bias) to its input's type inside
+``forward``. BatchNorm takes working-type input with fp32 parameters,
+reduces in fp32 and returns the working type.
+
+BatchNorm (``BatchNorm2d``, eps 1e-5) follows flax's ``nn.BatchNorm``: in
+train mode it normalizes with the batch statistics and folds the batch mean
+and the *biased* batch variance into the running statistics with momentum
+0.1 (flax's 0.9); ``nn.BatchNorm2d`` would fold the unbiased one.
 
 The stride-1 bottlenecks with planes >= 256 (5 + 2 of them in ResNet-50)
-run their BN -> ReLU -> conv3x3 link through ops/conv_bn.py in eval mode:
-bn1 is folded with its running statistics into (scale, shift), the link
-computes relu(y * scale + shift) -> conv3x3, and bn2 then applies its running
-statistics (the link's own (sum, sumsq) output is what a train-mode bn2
-would take; eval does not use it).
+run their BN -> ReLU -> conv3x3 link through ops/conv_bn.py, as the JAX
+package's ``Bottleneck(fuse_bn=True)``: bn1 is folded into (scale, shift)
+(running statistics in eval; the batch statistics of the 1x1 conv's output,
+two-pass, in train), the link computes relu(y * scale + shift) -> conv3x3
+plus (sum, sumsq) of its output, and bn2 applies its running statistics in
+eval or, in train, the link's (sum, sumsq) through make_stats_fold's
+clamped one-pass variance. Both paths are differentiable.
 """
 
 from __future__ import annotations
@@ -23,7 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.conv_bn import fused_bn_relu_conv
+from ..ops.conv_bn import fused_link, make_stats_fold
 
 # {depth: (block kind, blocks per stage)}
 RESNET_SPEC = {
@@ -35,13 +46,58 @@ RESNET_SPEC = {
 }
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose fp32 weight (and bias) is cast to the input's type."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d whose fp32 weight is cast to the input's type."""
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), None,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+def update_running_stats(bn: nn.BatchNorm2d, mean, var) -> None:
+    """Fold batch statistics (fp32, biased variance) into bn's running ones:
+    running = (1 - momentum) * running + momentum * batch, flax's
+    momentum * running + (1 - momentum) * batch with its momentum 0.9;
+    momentum None is torch's cumulative average."""
+    with torch.no_grad():
+        bn.num_batches_tracked += 1
+        f = (1.0 / float(bn.num_batches_tracked) if bn.momentum is None
+             else bn.momentum)
+        bn.running_mean.mul_(1.0 - f).add_(mean.detach(), alpha=f)
+        bn.running_var.mul_(1.0 - f).add_(var.detach(), alpha=f)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's train-mode semantics (see the module
+    docstring); eval is nn.BatchNorm2d's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        # the biased variance, back from invstd = (var + eps)^-1/2 (fp32)
+        update_running_stats(self, mean, invstd.detach() ** -2 - self.eps)
+        return y
+
+
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
     return nn.Sequential(
-        nn.Conv2d(cin, cout, 1, stride=stride, bias=False), _bn(cout)
+        Conv2d(cin, cout, 1, stride=stride, bias=False), _bn(cout)
     )
 
 
@@ -51,16 +107,41 @@ def fold_running_stats(bn: nn.BatchNorm2d):
     return inv, bn.bias.float() - bn.running_mean.float() * inv
 
 
+def fold_batch_stats(bn: nn.BatchNorm2d, x):
+    """(scale, shift) in fp32 with the batch statistics of x (two-pass,
+    biased; the JAX package's _StatsBN 'fold'), differentiable, and the
+    running statistics updated."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = ((xf - mean.view(1, -1, 1, 1)) ** 2).mean(dim=(0, 2, 3))
+    update_running_stats(bn, mean, var)
+    inv = bn.weight * torch.rsqrt(var + bn.eps)
+    return inv, bn.bias - mean * inv
+
+
+def apply_stats(bn: nn.BatchNorm2d, y, stats):
+    """bn(y) in train mode from y's (sum, sumsq) (the link's stats output;
+    the JAX package's _StatsBN 'apply'), differentiable through stats, and
+    the running statistics updated."""
+    n = y.shape[0] * y.shape[2] * y.shape[3]
+    scale, shift = make_stats_fold(stats, bn.weight, bn.bias, n, bn.eps)
+    mean = stats[0] / n
+    update_running_stats(bn, mean,
+                         torch.clamp(stats[1] / n - mean**2, min=0.0))
+    c = (1, -1, 1, 1)
+    return (y.float() * scale.view(c) + shift.view(c)).to(y.dtype)
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride=stride, padding=1,
+                            bias=False)
         self.bn1 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False)
         self.bn2 = _bn(planes)
         self.downsample = (_downsample(inplanes, planes, stride)
                            if downsample else None)
@@ -81,12 +162,12 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
+                            bias=False)
         self.bn2 = _bn(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = _bn(planes * 4)
         self.downsample = (_downsample(inplanes, planes * 4, stride)
                            if downsample else None)
@@ -95,16 +176,17 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         y = self.conv1(x)
-        if self.fused_link and not self.training:
-            y, _ = fused_bn_relu_conv(y, self.conv2.weight,
-                                      *fold_running_stats(self.bn1))
+        if self.fused_link and self.training:
+            y, stats = fused_link(y, self.conv2.weight,
+                                  *fold_batch_stats(self.bn1, y))
+            y = apply_stats(self.bn2, y, stats)
+        elif self.fused_link:
+            y, _ = fused_link(y, self.conv2.weight,
+                              *fold_running_stats(self.bn1))
+            y = self.bn2(y)
         else:
-            if self.fused_link and y.is_cuda:
-                raise NotImplementedError(
-                    "the fused link with batch statistics (train mode) is "
-                    "not ported yet; the port serves in eval mode")
-            y = self.conv2(F.relu(self.bn1(y)))
-        y = F.relu(self.bn2(y))
+            y = self.bn2(self.conv2(F.relu(self.bn1(y))))
+        y = F.relu(y)
         y = self.bn3(self.conv3(y))
         if self.downsample is not None:
             x = self.downsample(x)
@@ -114,11 +196,13 @@ class Bottleneck(nn.Module):
 class ResNetBackbone(nn.Module):
     """7x7 stem -> maxpool -> 4 stages; (B, 3, S, S) -> (B, C, S/32, S/32)."""
 
-    def __init__(self, num_layers: int = 50):
+    def __init__(self, num_layers: int = 50,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype  # the working type the input is cast to
         kind, counts = RESNET_SPEC[num_layers]
         block = BasicBlock if kind == "basic" else Bottleneck
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _bn(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes = 64
@@ -137,7 +221,7 @@ class ResNetBackbone(nn.Module):
     def forward(self, x):
         # cuDNN's tensor-core convs and the link kernel work in channels-last
         # memory; the logical layout stays NCHW
-        x = x.to(self.conv1.weight.dtype).contiguous(
+        x = x.to(self.dtype).contiguous(
             memory_format=torch.channels_last)
         x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
         for i in range(1, 5):
@@ -157,12 +241,12 @@ class DeconvHead(nn.Module):
         for i in range(num_deconv_layers):
             cin = in_channels if i == 0 else num_filters
             layers += [
-                nn.ConvTranspose2d(cin, num_filters, 4, stride=2, padding=1,
-                                   bias=False),
+                ConvTranspose2d(cin, num_filters, 4, stride=2, padding=1,
+                                bias=False),
                 _bn(num_filters),
                 nn.ReLU(inplace=True),
             ]
-        layers.append(nn.Conv2d(num_filters, num_joints * depth_dim, 1))
+        layers.append(Conv2d(num_filters, num_joints * depth_dim, 1))
         self.features = nn.Sequential(*layers)
         self.fp32_logits = fp32_logits
 
@@ -178,9 +262,10 @@ class ResPoseNet(nn.Module):
     """Backbone + head: (B, 3, S, S) images -> (B, K*D, S/4, S/4) logits."""
 
     def __init__(self, num_joints: int, depth_dim: int, num_layers: int = 50,
-                 fp32_logits: bool = True):
+                 fp32_logits: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.backbone = ResNetBackbone(num_layers)
+        self.backbone = ResNetBackbone(num_layers, dtype)
         self.head = DeconvHead(self.backbone.out_channels, num_joints,
                                depth_dim, fp32_logits=fp32_logits)
 

@@ -1,5 +1,7 @@
 """Fused BN-apply -> ReLU -> 3x3 conv -> output-stats link: the CUDA kernel
-``csrc/conv_bn_link.cu`` and its plain PyTorch version.
+``csrc/conv_bn_link.cu``, its plain PyTorch version, and ``fused_link``, the
+differentiable link whose backward is plain PyTorch (as the JAX package's is
+plain XLA).
 
     y     = conv3x3_SAME(relu(x * scale + shift), w)   # stride 1, no bias
     stats = (sum over pixels and batch of y, of y^2)    # (2, Cout) fp32
@@ -82,6 +84,56 @@ def fused_bn_relu_conv(x, w, scale, shift):
 
 
 fused_bn_relu_conv.launches = 0
+
+
+def fused_link_backward(x, w, scale, shift, y, gy, gstats):
+    """Gradient of the link, plain PyTorch: the JAX package's
+    ops/conv_bn_pallas.py:_fused_link_bwd (plain XLA there too). Elementwise
+    work stays in x's type, channel sums accumulate in fp32, and the conv's
+    input and weight gradients go to the library (cuDNN on the card).
+    Returns (gx, gw, gscale, gshift)."""
+    cdt = x.dtype
+    c = (1, -1, 1, 1)
+    g = (gy.to(cdt) + gstats[0].view(c).to(cdt)
+         + 2.0 * y * gstats[1].view(c).to(cdt))
+    pre = x * scale.view(c).to(cdt) + shift.view(c).to(cdt)
+    a = torch.relu(pre)
+    ga, gw, _ = torch.ops.aten.convolution_backward(
+        g.contiguous(memory_format=torch.channels_last), a, w.to(cdt), None,
+        [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, False])
+    gpre = torch.where(pre > 0, ga, torch.zeros((), dtype=ga.dtype,
+                                                device=ga.device))
+    gx = gpre * scale.view(c).to(cdt)
+    gpre32 = gpre.float()
+    gscale = (gpre32 * x.float()).sum(dim=(0, 2, 3))
+    gshift = gpre32.sum(dim=(0, 2, 3))
+    return gx, gw.to(w.dtype), gscale, gshift
+
+
+class _FusedLink(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, scale, shift):
+        y, stats = fused_bn_relu_conv(x, w, scale, shift)
+        ctx.save_for_backward(x, w, scale, shift, y)
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, gy, gstats):
+        x, w, scale, shift, y = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(y)
+        if gstats is None:
+            gstats = torch.zeros((2, w.shape[0]), dtype=torch.float32,
+                                 device=y.device)
+        return fused_link_backward(x, w, scale, shift, y, gy, gstats)
+
+
+def fused_link(x, w, scale, shift):
+    """The differentiable link (the JAX package's conv_bn_pallas.fused_link):
+    ``fused_bn_relu_conv`` forward, ``fused_link_backward`` backward."""
+    if not torch.is_grad_enabled():
+        return fused_bn_relu_conv(x, w, scale, shift)
+    return _FusedLink.apply(x, w, scale, shift)
 
 
 def make_stats_fold(stats, gamma, beta, n: int, eps: float = 1e-5):

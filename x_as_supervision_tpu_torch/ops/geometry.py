@@ -1,5 +1,5 @@
-"""Patch -> image -> world keypoint conversions (the chain the serving path's
-``lift_to_world`` uses), ported from the JAX package's ops/geometry.py.
+"""The skeleton line renderer and the patch -> image -> world keypoint
+conversions, ported from the JAX package's ops/geometry.py.
 
 Conventions: keypoints are (..., K, 3) with channels (x, y, z), x the image
 column and y the row. "patch" coords are pixels of the square crop,
@@ -12,6 +12,54 @@ optionally normalized so x, y, z lie in [-1, 1] (divided by side - 1);
 from __future__ import annotations
 
 import torch
+
+# Line ids rendered with a 2x sharper falloff when the extended (>= 21 line)
+# skeleton is used: the four arm bones.
+ARM_LINE_IDS = (11, 12, 14, 15)
+
+
+def draw_lines(keypoints, image_size: int, parent_ids, child_ids,
+               body_width: float):
+    """Differentiable point-to-segment Gaussian line rendering, fp32.
+
+    keypoints (B, K, 2) in [-1, 1]; parent_ids / child_ids the L lines'
+    endpoints; body_width the falloff (already scaled by 1e-3). For every
+    pixel of an S^2 grid over [-1, 1]^2, the squared distance to each
+    segment (to its start before it, its end after it, the foot of the
+    perpendicular between) gives exp(-d^2 / body_width); with >= 21 lines
+    the arm bones fall off 2x faster. Returns (B, L, S, S)."""
+    child = torch.as_tensor(child_ids, device=keypoints.device)
+    parent = torch.as_tensor(parent_ids, device=keypoints.device)
+    num_lines = len(parent_ids)
+    sx = keypoints[:, child, 0, None]  # start, (B, L, 1)
+    sy = keypoints[:, child, 1, None]
+    ex = keypoints[:, parent, 0, None]  # end
+    ey = keypoints[:, parent, 1, None]
+    vx, vy = ex - sx, ey - sy
+
+    coord = torch.linspace(-1.0, 1.0, image_size, dtype=keypoints.dtype,
+                           device=keypoints.device)
+    gx = coord.repeat(image_size).view(1, 1, -1)  # (1, 1, S*S), x fastest
+    gy = coord.repeat_interleave(image_size).view(1, 1, -1)
+
+    dsx, dsy = gx - sx, gy - sy
+    t = (dsx * vx + dsy * vy) / (1e-8 + vx * vx + vy * vy)
+    dex, dey = gx - ex, gy - ey
+    sq_start = dsx * dsx + dsy * dsy
+    sq_end = dex * dex + dey * dey
+    fx, fy = dsx - t * vx, dsy - t * vy
+    sq_foot = fx * fx + fy * fy
+    sq = torch.where(t <= 0.0, sq_start,
+                     torch.where(t >= 1.0, sq_end, sq_foot))
+    sq = sq.view(keypoints.shape[0], num_lines, image_size, image_size)
+
+    neg = -sq / body_width
+    if num_lines >= 21:
+        sharp = torch.ones(num_lines, dtype=keypoints.dtype,
+                           device=keypoints.device)
+        sharp[list(ARM_LINE_IDS)] = 2.0
+        neg = neg * sharp.view(1, -1, 1, 1)
+    return torch.exp(neg)
 
 
 def _invert_affine_2x3(trans: torch.Tensor):

@@ -6,8 +6,10 @@ joint's (D, H, W) volume, marginalization onto each axis, and either a plain
 expectation (single hypothesis) or 1-D peak finding plus a windowed
 expectation on the depth marginal (multi-hypothesis).
 
-The marginals come from ops/integral_kernel.py: the CUDA kernel for a CUDA
-tensor, its plain version for a CPU tensor.
+The marginals come from ops/integral_kernel.py: the CUDA kernels (forward
+and backward) for a CUDA tensor, their plain versions for a CPU tensor.
+Everything here is differentiable; the peak indices carry no gradient, the
+gather of the window sums at them does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .integral_kernel import integral_marginals
+from .integral_kernel import marginals
 
 
 class IntegralDecode(NamedTuple):
@@ -28,7 +30,7 @@ class IntegralDecode(NamedTuple):
 def heatmap_marginals(logits: torch.Tensor, num_joints: int):
     """(B, K*D, H, W) logits -> normalized softmax marginals accu_x (B, K, W),
     accu_y (B, K, H), accu_z (B, K, D), in fp32."""
-    ax, ay, az, _, _ = integral_marginals(logits, num_joints)
+    ax, ay, az, _, _ = marginals(logits, num_joints)
     return ax, ay, az
 
 

@@ -1,5 +1,6 @@
-"""Detector weights: the JAX package's variables -> the port's state_dict,
-and seeded random weights conditioned for a stable eval forward.
+"""Weights: the JAX package's variables -> the port's state_dicts (detector,
+physique net, discriminator), seeded random weights, and conditioning of
+random detector weights for a stable eval forward.
 
 The JAX detector's variables are ``{'params': ..., 'batch_stats': ...}``
 trees under ``net/backbone`` (``Conv_0``, ``_BN_0``, ``Bottleneck_i`` or
@@ -12,7 +13,16 @@ tools/convert_torch_resnet.py). The port's keys are torchvision's plus
 
 Conversions: conv kernels HWIO -> OIHW; a flax ConvTranspose kernel is the
 torch ConvTranspose2d(k4, s2, p1) weight spatially flipped and transposed, so
-its inverse is a flip, then a permute to (Cin, Cout, kh, kw).
+its inverse is a flip, then a permute to (Cin, Cout, kh, kw); a flax Dense
+kernel (in, out) is a Linear weight (out, in) transposed.
+
+The physique net's flax tree is ``Conv_i`` (kernel, bias) and
+``_BN_i/BatchNorm_0``; the port's is ``convs.i`` and ``bns.i``. The
+discriminator's is ``{joint,bone}_input``, ``{joint,bone}_block<i>`` and
+``{joint,bone}_final`` (``DenseSAGE_j/{lin_neigh,lin_root}``,
+``GraphLayerNorm_j``) and ``header/Dense_{0,1}``; the port's is
+``{tag}_input``, ``{tag}_blocks.i.{sage,norm}.j``, ``{tag}_final.{sage,norm}.0``
+and ``header.dense{0,1}``.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .models.physique import Conv3x3
 from .models.resnet import RESNET_SPEC, BasicBlock, Bottleneck
 
 
@@ -96,6 +107,54 @@ def state_dict_from_variables(variables: dict) -> dict:
     return sd
 
 
+def physique_state_dict(variables: dict) -> dict:
+    """JAX physique variables ({'params', 'batch_stats'}) -> the port's
+    PhysiqueMaskGenerator state_dict."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: dict = {}
+    i = 0
+    while f"Conv_{i}" in params:
+        sd[f"convs.{i}.weight"] = _conv(params[f"Conv_{i}"]["kernel"])
+        sd[f"convs.{i}.bias"] = _t(params[f"Conv_{i}"]["bias"])
+        if f"_BN_{i}" in params:
+            _bn(sd, f"bns.{i}", params[f"_BN_{i}"], stats[f"_BN_{i}"])
+        i += 1
+    return sd
+
+
+def _dense(sd: dict, prefix: str, p: dict) -> None:
+    sd[prefix + ".weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def discriminator_state_dict(params: dict) -> dict:
+    """JAX GCNDiscriminatorDecouple params -> the port's state_dict."""
+    sd: dict = {}
+
+    def block(prefix: str, p: dict) -> None:
+        j = 0
+        while f"DenseSAGE_{j}" in p:
+            sage = p[f"DenseSAGE_{j}"]
+            _dense(sd, f"{prefix}.sage.{j}.lin_neigh", sage["lin_neigh"])
+            _dense(sd, f"{prefix}.sage.{j}.lin_root", sage["lin_root"])
+            norm = p[f"GraphLayerNorm_{j}"]
+            sd[f"{prefix}.norm.{j}.weight"] = _t(norm["scale"])
+            sd[f"{prefix}.norm.{j}.bias"] = _t(norm["bias"])
+            j += 1
+
+    for tag in ("joint", "bone"):
+        _dense(sd, f"{tag}_input", params[f"{tag}_input"])
+        i = 0
+        while f"{tag}_block{i}" in params:
+            block(f"{tag}_blocks.{i}", params[f"{tag}_block{i}"])
+            i += 1
+        block(f"{tag}_final", params[f"{tag}_final"])
+    _dense(sd, "header.dense0", params["header"]["Dense_0"])
+    _dense(sd, "header.dense1", params["header"]["Dense_1"])
+    return sd
+
+
 def load_npz(path: str) -> dict:
     """A flat ``.npz`` of detector variables -> the port's state_dict."""
     variables: dict = {}
@@ -109,17 +168,24 @@ def load_npz(path: str) -> dict:
     return state_dict_from_variables(variables)
 
 
-def init_weights(det: nn.Module, seed: int) -> None:
-    """Seeded random weights: He-normal (fan-out) convs, as the JAX package
-    initializes them; BN scale 1, bias 0, fresh statistics; zero conv bias."""
+def init_weights(module: nn.Module, seed: int) -> None:
+    """Seeded random weights, as the JAX package initializes them:
+    He-normal (fan-out) convs with zero bias; LeCun-normal (fan-in) Linear
+    weights with zero bias (flax's lecun_normal draws from a truncated
+    normal); BN scale 1, bias 0, fresh statistics; LayerNorm-style
+    parameters stay as built (ones and zeros)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for m in det.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, Conv3x3)):
                 w = torch.empty(m.weight.shape, dtype=torch.float32)
                 nn.init.kaiming_normal_(w, mode="fan_out",
                                         nonlinearity="relu", generator=gen)
                 m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, m.in_features ** -0.5, generator=gen)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
