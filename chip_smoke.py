@@ -14,7 +14,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    together;
 3. kernels: each kernel at the shapes the serving path gives it, in fp32 and
    bf16, against its plain version on the same inputs (fp32 with TF32 off);
-   kernel, plain and library times with CUDA events;
+   kernel, plain and library times with CUDA events, each case with the
+   path it took (link: wgmma and its tile, or FMA; conv3x3: tensor cores or
+   CUDA cores); the conv's library time at the kernel's channels-last
+   layout, and at NCHW as ``library_nchw_ms``;
 4. serving: PoseEstimator with the HM36_Multi_SurS2 detector (ResNet-50,
    256^2 patches, K=18, D=64, 3 hypotheses) in bf16 at batch 32 on 64 seeded
    images, with seeded weights conditioned for a stable eval forward. The
@@ -28,9 +31,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    discriminator, every loss) in bf16 with seeded weights: one warm-up step,
    then 3 timed steps (CUDA events), images per second, peak memory, each
    loss. The launch counts are set to 0 just before the timed steps and read
-   just after: per step decode forward 2, decode backward 2, link 14,
-   physique conv 10 forward + 8 input gradients. Then torch.profiler over
-   one more step;
+   just after: per step decode forward 2, decode backward 2, link 14 (all on
+   wgmma), physique conv 10 forward + 8 input gradients (14 on tensor
+   cores, 4 on CUDA cores). Then torch.profiler over one more step, with
+   the count of NCHW<->NHWC transpose kernels it still runs;
 7. train-parity: one fused step of a reduced flagship config (ResNet-50 at
    64^2, 2 cameras, batch 2, D = 16) in fp32 on the card, TF32 off, against
    the same step on the CPU's plain path from the same weights and batch.
@@ -81,6 +85,13 @@ CONV_SHAPES = (
 # physique net's 10 convs and the input gradients of its 8 stride-1 ones
 TRAIN_LAUNCHES = {"integral_marginals": 2, "integral_marginals_bwd": 2,
                   "conv_bn_link": 14, "conv3x3": 18}
+# the same by path: every bf16 link on wgmma; the physique convs with 32 or
+# more channels on both sides on tensor cores (8 forwards, 6 input
+# gradients), 1->32, 32->1 and their input gradients on the CUDA cores
+TRAIN_PATH_LAUNCHES = {
+    "conv_bn_link": {"launches_wgmma": 14, "launches_fma": 0},
+    "conv3x3": {"launches_tc": 14, "launches_cuda_core": 4},
+}
 
 KERNELS = {
     "integral_marginals": dict(
@@ -213,7 +224,7 @@ def _link_case(dtype, batch: int, c: int, side: int) -> dict:
     import torch.nn.functional as F
 
     from x_as_supervision_tpu_torch.ops.conv_bn import (
-        bn_relu_conv_plain, fused_bn_relu_conv)
+        FMA_TILE, bn_relu_conv_plain, fused_bn_relu_conv, link_tile)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # channels-last, as the serving path's 1x1 conv hands it over
@@ -247,8 +258,12 @@ def _link_case(dtype, batch: int, c: int, side: int) -> dict:
     nbytes = 2 * n * c * elt + 9 * c * c * elt + 2 * c * 4 + 2 * c * 4
     flops = 2.0 * n * c * 9 * c + 3.0 * n * c
     bound, by = bound_ms(nbytes, flops, kind)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = (link_tile(batch, side, side, c, sms)
+            if dtype == torch.bfloat16 else FMA_TILE)
     return dict(
         name="conv_bn_link", dtype=kind, shape=[batch, c, side, side],
+        path="wgmma" if dtype == torch.bfloat16 else "fma", tile=list(tile),
         max_abs_err=err, stats_rel_err=serr,
         ms=cuda_ms(lambda: fused_bn_relu_conv(x, w, scale, shift)),
         plain_ms=cuda_ms(lambda: bn_relu_conv_plain(x, w, scale, shift)),
@@ -310,14 +325,16 @@ def _conv_case(dtype, batch: int, cin: int, cout: int, side: int,
     import torch.nn.functional as F
 
     from x_as_supervision_tpu_torch.ops.conv3x3 import (
-        conv3x3_kernel, conv3x3_plain)
+        channels_last, conv3x3_kernel, conv3x3_path, conv3x3_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    x = torch.randn((batch, cin, side, side), generator=gen,
-                    device="cuda").to(dtype)
+    # channels-last, as the physique net hands it over
+    x = channels_last(torch.randn((batch, cin, side, side), generator=gen,
+                                  device="cuda").to(dtype))
     w = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
          * (2 / (9 * cin)) ** 0.5)
     b = torch.randn(cout, generator=gen, device="cuda") * 0.1
+    path = conv3x3_path(dtype, cin, cout)
     y = conv3x3_kernel(x, w, b, stride)
     ry = conv3x3_plain(x, w, b, stride)
     torch.cuda.synchronize()
@@ -327,7 +344,7 @@ def _conv_case(dtype, batch: int, cin: int, cout: int, side: int,
     # bf16: y is then rounded to bf16, one step (2^-8) apart at most
     tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * ymax
     check(err <= tol, f"conv3x3 kernel {dtype} {cin}->{cout} at {side}^2 "
-                      f"s{stride}: max|err| {err} > {tol}")
+                      f"s{stride} ({path}): max|err| {err} > {tol}")
     elt = x.element_size()
     out = y.numel()
     nbytes = (x.numel() + out) * elt + w.numel() * elt + cout * 4
@@ -335,17 +352,24 @@ def _conv_case(dtype, batch: int, cin: int, cout: int, side: int,
     bound, by = bound_ms(nbytes, flops, _kind(dtype))
     wc = w.to(dtype)
     bc = b.to(dtype)
+    w_cl = wc.contiguous(memory_format=torch.channels_last)
+    x_nchw = x.contiguous()
     case = dict(
-        name="conv3x3", dtype=_kind(dtype),
+        name="conv3x3", dtype=_kind(dtype), path=path,
         shape=[batch, cin, side, side], cout=cout, stride=stride,
         max_abs_err=err,
         ms=cuda_ms(lambda: conv3x3_kernel(x, w, b, stride), iters=10),
         plain_ms=cuda_ms(lambda: conv3x3_plain(x, w, b, stride), iters=10),
-        library_ms=cuda_ms(lambda: F.conv2d(x, wc, bc, stride=stride,
+        # the yardstick at the kernel's layout (channels-last x and w), and
+        # at NCHW, the layout of the earlier NCHW kernel's yardstick
+        library_ms=cuda_ms(lambda: F.conv2d(x, w_cl, bc, stride=stride,
                                             padding=1), iters=10),
+        library_nchw_ms=cuda_ms(lambda: F.conv2d(x_nchw, wc, bc,
+                                                 stride=stride, padding=1),
+                                iters=10),
         bound_ms=bound, bound_by=by,
     )
-    del x, y, ry
+    del x, x_nchw, y, ry
     torch.cuda.empty_cache()
     return case
 
@@ -484,6 +508,7 @@ def phase_serve() -> tuple:
 
     integral_marginals.launches = 0
     fused_bn_relu_conv.launches = 0
+    fused_bn_relu_conv.launches_wgmma = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -493,7 +518,8 @@ def phase_serve() -> tuple:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {"integral_marginals": integral_marginals.launches,
-                "conv_bn_link": fused_bn_relu_conv.launches}
+                "conv_bn_link": fused_bn_relu_conv.launches,
+                "conv_bn_link_wgmma": fused_bn_relu_conv.launches_wgmma}
     forwards = -(-SERVE_IMAGES // SERVE_BATCH)
     device_ms = start.elapsed_time(end)
 
@@ -507,8 +533,9 @@ def phase_serve() -> tuple:
     check(launches["integral_marginals"] == forwards,
           f"decode launches {launches['integral_marginals']} != {forwards}")
     links = forwards * sum(n for _, _, n in LINK_SHAPES)
-    check(launches["conv_bn_link"] == links,
-          f"link launches {launches['conv_bn_link']} != {links}")
+    check(launches["conv_bn_link"] == links
+          and launches["conv_bn_link_wgmma"] == links,
+          f"link launches {launches} != {links}, all on wgmma")
 
     # the card's fp32 path against the CPU's plain fp32 path, TF32 off
     few = images[:FP32_CHECK_IMAGES]
@@ -605,6 +632,25 @@ def _profile_rows(prof, window_us: float, top: int) -> dict:
                      for d, c, k in rows[:top]])
 
 
+def _layout_transposes(prof) -> dict:
+    """The NCHW<->NHWC transpose kernels (cuDNN's nchwToNhwc / nhwcToNchw)
+    in a torch.profiler run: launches and device microseconds."""
+    import re
+
+    import torch
+
+    pat = re.compile(r"nchw.{0,4}to.{0,4}nhwc|nhwc.{0,4}to.{0,4}nchw", re.I)
+    calls, us = 0, 0.0
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and pat.search(e.key)):
+            calls += e.count
+            dev = getattr(e, "self_device_time_total", None)
+            us += dev if dev is not None else getattr(
+                e, "self_cuda_time_total", 0.0)
+    return dict(calls=calls, us=us)
+
+
 def _counters() -> dict:
     """The launch-counting wrappers of the four kernels, by kernel name."""
     from x_as_supervision_tpu_torch.ops.conv3x3 import conv3x3_kernel
@@ -668,8 +714,10 @@ def phase_train(top: int = 15) -> dict:
     step(0)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     counters = _counters()
-    for fn in counters.values():
+    for name, fn in counters.items():
         fn.launches = 0
+        for attr in TRAIN_PATH_LAUNCHES.get(name, ()):
+            setattr(fn, attr, 0)
     torch.cuda.reset_peak_memory_stats()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True))
@@ -684,6 +732,9 @@ def phase_train(top: int = 15) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    path_launches = {name: {attr: getattr(counters[name], attr)
+                            for attr in attrs}
+                     for name, attrs in TRAIN_PATH_LAUNCHES.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = [a.elapsed_time(b) for a, b in events]
     losses = [{k: float(v) for k, v in sorted(m.items())} for m in history]
@@ -699,6 +750,11 @@ def phase_train(top: int = 15) -> dict:
         check(launches[name] == per_step * TRAIN_STEPS,
               f"train: {name} launched {launches[name]} times in "
               f"{TRAIN_STEPS} steps, expected {per_step} per step")
+    for name, attrs in TRAIN_PATH_LAUNCHES.items():
+        for attr, per_step in attrs.items():
+            check(path_launches[name][attr] == per_step * TRAIN_STEPS,
+                  f"train: {name}.{attr} = {path_launches[name][attr]} in "
+                  f"{TRAIN_STEPS} steps, expected {per_step} per step")
 
     # one more step under the profiler
     ev0, ev1 = (torch.cuda.Event(enable_timing=True),
@@ -719,11 +775,15 @@ def phase_train(top: int = 15) -> dict:
         wall_s=wall_s, setup_s=setup_s, peak_memory_gb=peak_gb,
         launches=launches,
         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+        path_launches_per_step={
+            name: {a: v / TRAIN_STEPS for a, v in attrs.items()}
+            for name, attrs in path_launches.items()},
         losses=losses, params_unmoved=unmoved,
         max_param_change=max(moved.values()),
     )
     emit(**record)
     emit(phase="train_profile", window_us=window_us,
+         layout_transposes=_layout_transposes(prof),
          **_profile_rows(prof, window_us, top))
     return record
 
@@ -908,6 +968,8 @@ def main() -> int:
             plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
             bound_by=case["bound_by"], library_ms=case["library_ms"],
             dtype=case["dtype"], shape=case["shape"],
+            library_nchw_ms=case.get("library_nchw_ms"),
+            path_launches=train["path_launches_per_step"].get(name),
             serve_launches=serve["launches"].get(name),
         ))
     print(json.dumps({"kernels": kernels}), flush=True)

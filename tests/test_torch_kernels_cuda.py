@@ -15,8 +15,10 @@ import torch
 
 from x_as_supervision_tpu_torch.models.detector import build_detector
 from x_as_supervision_tpu_torch.ops.conv3x3 import (
+    TC,
     conv3x3,
     conv3x3_kernel,
+    conv3x3_path,
     conv3x3_plain,
 )
 from x_as_supervision_tpu_torch.ops.conv_bn import (
@@ -90,13 +92,23 @@ def _link_case(dev, b, c, co, h, w, dtype, shift_mean=0.0):
     (2, 64, 64, 6, 6, 2.0),      # relu(shift) > 0: the halo must stay zero
     (32, 256, 256, 16, 16, 0.0),  # stage 3 at the serving batch
     (32, 512, 512, 8, 8, 0.0),    # stage 4
+    # the bf16 tiles (tests/test_torch_conv_layout.py holds which shape
+    # takes which on a 132-SM card): 128x256 at the training shape, and with
+    # 8x16 regions cut by the image's edge (47x47); 128x64 for Cout = 64
+    (128, 256, 256, 16, 16, 0.0),
+    (7, 256, 256, 47, 47, 0.0),
+    (64, 64, 64, 32, 32, 0.0),
 ])
 def test_link_kernel_matches_plain(dev, dtype, b, c, co, h, w, shift_mean):
     x, wt, scale, shift = _link_case(dev, b, c, co, h, w, dtype, shift_mean)
-    before = fused_bn_relu_conv.launches
+    before = (fused_bn_relu_conv.launches, fused_bn_relu_conv.launches_wgmma,
+              fused_bn_relu_conv.launches_fma)
     y, stats = fused_bn_relu_conv(x, wt, scale, shift)
     torch.cuda.synchronize()
-    assert fused_bn_relu_conv.launches == before + 1
+    wgmma = int(dtype == torch.bfloat16)
+    assert (fused_bn_relu_conv.launches, fused_bn_relu_conv.launches_wgmma,
+            fused_bn_relu_conv.launches_fma) == (
+        before[0] + 1, before[1] + wgmma, before[2] + 1 - wgmma)
     assert y.dtype == dtype and y.shape == (b, co, h, w)
     ry, rstats = bn_relu_conv_plain(x, wt, scale, shift)
     ymax = ry.float().abs().max().item()
@@ -176,13 +188,29 @@ def _conv_case(dev, b, cin, cout, h, w, dtype, seed=3):
     (2, 128, 128, 16, 16, 1),
     (3, 5, 7, 19, 37, 1),      # ragged tiles, channels not a block multiple
     (1, 6, 3, 21, 35, 2),      # odd sides at stride 2
+    # every physique shape of the flagship step (Cin, Cout, side, stride) at
+    # batch 2: forwards, then the input gradients no forward has
+    (2, 1, 32, 256, 256, 1), (2, 32, 32, 256, 256, 1),
+    (2, 32, 64, 256, 256, 2), (2, 64, 64, 128, 128, 1),
+    (2, 64, 128, 128, 128, 2), (2, 128, 128, 64, 64, 1),
+    (2, 128, 64, 128, 128, 1), (2, 64, 32, 256, 256, 1),
+    (2, 32, 1, 256, 256, 1), (2, 64, 128, 128, 128, 1),
+    (2, 32, 64, 256, 256, 1),
+    # tensor-core tiles cut by odd sides, and 32-channel output blocks
+    (2, 32, 64, 37, 45, 1), (2, 64, 32, 29, 51, 2), (1, 96, 96, 19, 23, 1),
 ])
 def test_conv3x3_kernel_matches_plain(dev, dtype, b, cin, cout, h, w, stride):
     x, wt, bias = _conv_case(dev, b, cin, cout, h, w, dtype)
-    before = conv3x3_kernel.launches
+    before = (conv3x3_kernel.launches, conv3x3_kernel.launches_tc,
+              conv3x3_kernel.launches_cuda_core)
     got = conv3x3_kernel(x, wt, bias, stride)
     torch.cuda.synchronize()
-    assert conv3x3_kernel.launches == before + 1
+    tc = int(conv3x3_path(dtype, cin, cout) == TC)
+    assert tc == int(dtype == torch.bfloat16 and min(cin, cout) >= 32)
+    assert (conv3x3_kernel.launches, conv3x3_kernel.launches_tc,
+            conv3x3_kernel.launches_cuda_core) == (
+        before[0] + 1, before[1] + tc, before[2] + 1 - tc)
+    assert got.is_contiguous(memory_format=torch.channels_last)
     want = conv3x3_plain(x, wt, bias, stride)
     assert got.dtype == dtype and got.shape == want.shape
     ymax = want.float().abs().max().item()
@@ -252,6 +280,11 @@ def test_kernels_raise_on_unsupported_cuda_input(dev):
         conv3x3_kernel(torch.zeros((1, 2, 4, 4), device=dev),
                        torch.zeros((3, 2, 3, 3), device=dev),
                        torch.zeros(3, device=dev), 3)
+    with pytest.raises(ValueError):  # tensor-core shape, Cin % 32 != 0
+        conv3x3_kernel(torch.zeros((1, 40, 4, 4), device=dev,
+                                   dtype=torch.bfloat16),
+                       torch.zeros((64, 40, 3, 3), device=dev),
+                       torch.zeros(64, device=dev))
 
 
 def test_detector_on_card_matches_cpu(dev):

@@ -127,3 +127,44 @@ def test_convs_go_through_the_conv_wrapper(pair, monkeypatch):
     torch.autograd.grad(y.sum(), xt)
     # the input gradients of the eight stride-1 convs reuse the kernel
     assert len(calls) == 18
+
+
+def _nhwc_strides(t):
+    b, c, h, w = t.shape
+    return t.stride() == (h * w * c, 1, w * c, c)
+
+
+def test_every_conv_call_gets_channels_last(pair, monkeypatch):
+    """The net keeps its activations channels-last: each of the 18 conv
+    calls (10 forwards, 8 stride-1 input gradients) receives dense NHWC
+    strides, a C = 1 tensor included, and the net still matches JAX."""
+    from x_as_supervision_tpu_torch.ops import conv3x3 as C
+
+    jnet, variables, net, x = pair
+    seen = []
+    real = C.conv3x3_kernel
+    monkeypatch.setattr(C, "conv3x3_kernel",
+                        lambda *a: seen.append((tuple(a[0].shape),
+                                                _nhwc_strides(a[0])))
+                        or real(*a))
+    net.load_state_dict(weights.physique_state_dict(variables))
+    net.train()
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).requires_grad_(True)
+    y = net(xt)
+    (gx,) = torch.autograd.grad(y.sum(), xt)
+    assert len(seen) == 18
+    assert all(ok for _, ok in seen), [s for s, ok in seen if not ok]
+    assert sum(s[1] == 1 for s, _ in seen) == 2  # first conv, last dgrad
+
+    def loss(x_):
+        out, _ = jnet.apply(variables, x_, train=True, mutable=["batch_stats"])
+        return out.sum(), out
+
+    (_, want), want_gx = jax.value_and_grad(loss, has_aux=True)(
+        jnp.asarray(x))
+    # fp32 through ten convs and nine batch normalizations, as above
+    np.testing.assert_allclose(y.detach().permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), rtol=1e-4, atol=1e-5)
+    want_gx = np.asarray(want_gx)
+    np.testing.assert_allclose(gx.permute(0, 2, 3, 1).numpy(), want_gx,
+                               rtol=1e-3, atol=1e-4 * np.abs(want_gx).max())

@@ -3,9 +3,13 @@ rendered skeleton-line mask into a body silhouette, ported from the JAX
 package's models/physique.py (its default NHWC path).
 
 NCHW: the input is (B, 1, S, S) and the output (B, 1, S, S) in fp32 after a
-sigmoid. Every 3x3 conv runs through ops/conv3x3.py (the CUDA kernel on the
-card). Parameters and BatchNorm statistics are fp32; the input is cast to
-the working type ``dtype`` and each conv casts its weight to it. BatchNorm
+sigmoid. The input is put in channels-last memory once, and every
+activation stays channels-last between layers (conv, BatchNorm, leaky ReLU,
+bilinear upsample, and their gradients), so no layout copy sits between
+layers and cuDNN and PyTorch's BatchNorm run their NHWC forms. Every 3x3
+conv runs through ops/conv3x3.py (the CUDA kernels on the card).
+Parameters and BatchNorm statistics are fp32; the input is cast to the
+working type ``dtype`` and each conv casts its weight to it. BatchNorm
 (models/resnet.py:BatchNorm2d) pools its statistics over the whole batch,
 all cameras together, as the JAX package does.
 """
@@ -18,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.conv3x3 import conv3x3
+from ..ops.conv3x3 import channels_last, conv3x3
 from .resnet import BatchNorm2d
 
 
@@ -74,7 +78,7 @@ class PhysiqueMaskGenerator(nn.Module):
         return [f"convs.{i}.bias" for i in range(len(self.bns))]
 
     def forward(self, x):
-        x = x.to(self.dtype)
+        x = channels_last(x.to(self.dtype))
         i = 0
         for op in self.ops:
             if op[0] == "up":

@@ -3,12 +3,15 @@
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so ``nvcc`` builds it in seconds. It is compiled for ``sm_90a`` into
 ``build/kernels/<name>-<hash>.so`` under the repository root at first use;
-the hash covers the source and the flags, so an edited source never loads a
-stale library. A failed build raises. Nothing here runs at import time.
+the hash covers the source, every shared header ``csrc/*.cuh`` (the sources
+include them through ``-I csrc``) and the flags, so an edited source or
+header never loads a stale library. A failed build raises. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,10 +43,11 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return src, BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> None:
@@ -57,7 +61,8 @@ def build(*names: str) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((proc, cmd, tmp, lib))
@@ -90,6 +95,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.xas_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def device_guard(t: torch.Tensor):
+    """``torch.cuda.device(t.device)``, or nothing when that device is
+    already current: entering the guard costs host time on every launch,
+    which shows at small batch."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:

@@ -10,13 +10,16 @@ x is (B, Cin, H, W) in fp32 or bf16, w (Cout, Cin, 3, 3), scale and shift
 (Cin,) fp32. The activation is computed in fp32 and rounded to x's type
 before the conv; the conv accumulates in fp32; y comes back in x's type and
 the stats are taken from the fp32 values before that rounding. The kernel
-works in channels-last memory; the wrapper converts x explicitly and returns
-y in channels-last memory (the same logical NCHW tensor).
+works in channels-last memory; the wrapper converts x explicitly, packs the
+weights (``pack_link_weights``), picks the bf16 tile and its regions from
+the shape (``link_tile``, ``link_regions``) and returns y in channels-last
+memory (the same logical NCHW tensor).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -38,9 +41,71 @@ def bn_relu_conv_plain(x, w, scale, shift):
     return y.to(x.dtype), stats
 
 
+# (BM, BN) pixel x output-channel tiles of the bf16 wgmma kernel, largest
+# first; csrc/conv_bn_link.cu instantiates exactly these
+LINK_TILES = ((128, 256), (128, 128), (64, 128), (128, 64), (64, 64))
+FMA_TILE = (64, 64)
+
+
+def link_regions(bm: int, h: int, w: int) -> tuple[int, int, int]:
+    """How the bf16 kernel cuts BM pixels into regions it stages with a
+    one-pixel halo: (RH, RW, G), G regions of RH x RW pixels of one image
+    each, RH and RW multiples of 8 (the kernel's 8x8 m64 tiles). Images of
+    at most 8x8 go whole, G = BM / 64 of them to a block; larger ones in
+    16-wide patches (8-wide where W <= 8 or BM = 64)."""
+    if (h <= 8 and w <= 8) or bm == 64:
+        return 8, 8, bm // 64 if h <= 8 and w <= 8 else 1
+    rw = 16 if w > 8 else 8
+    return bm // rw, rw, 1
+
+
+def link_blocks(b: int, h: int, w: int, tile) -> int:
+    """Blocks along the pixels for a tile: one per G images x RH x RW."""
+    rh, rw, g = link_regions(tile[0], h, w)
+    return -(-b // g) * -(-h // rh) * -(-w // rw)
+
+
+def link_tile(b: int, h: int, w: int, cout: int,
+              sms: int) -> tuple[int, int]:
+    """The bf16 kernel's (BM, BN) tile for a (B, Cin, H, W) input and Cout
+    output channels on a card of `sms` SMs: the largest tile whose grid
+    still fills at least 90 % of the SMs (one block each), else the one with
+    the most blocks. K is never split: the stats need each pixel's full
+    sum."""
+    fits = [t for t in LINK_TILES if cout % t[1] == 0]
+    if not fits:
+        raise ValueError(f"no link tile for Cout={cout} "
+                         "(needs Cout % 64 == 0)")
+
+    def blocks(t):
+        return link_blocks(b, h, w, t) * (cout // t[1])
+
+    for t in fits:
+        if blocks(t) * 10 >= 9 * sms:
+            return t
+    return max(fits, key=blocks)
+
+
+def pack_link_weights(w, dtype):
+    """w (Cout, Cin, 3, 3) packed for the kernel, K = (tap, Cin) tap-major:
+    bf16 (9, Cout, Cin), each output channel's K contiguous (the K-major
+    layout wgmma reads untransposed); fp32 (9, Cin, Cout) for the FMA
+    path. Plain torch, so the CPU tests check it."""
+    cout, cin = w.shape[:2]
+    if dtype == torch.float32:
+        out = torch.empty((9, cin, cout), dtype=dtype, device=w.device)
+        out.view(3, 3, cin, cout).copy_(w.permute(2, 3, 1, 0))
+    else:
+        out = torch.empty((9, cout, cin), dtype=dtype, device=w.device)
+        out.view(3, 3, cout, cin).copy_(w.permute(2, 3, 0, 1))
+    return out  # one cast-and-permute copy
+
+
 def fused_bn_relu_conv(x, w, scale, shift):
     """The link on x: the kernel for a CUDA tensor, the plain version for a
-    CPU tensor. Returns (y (B, Cout, H, W) in x's type, stats (2, Cout))."""
+    CPU tensor. Returns (y (B, Cout, H, W) in x's type, stats (2, Cout)).
+    bf16 runs the wgmma kernel (count ``launches_wgmma``), fp32 the FMA one
+    (``launches_fma``); ``launches`` counts both."""
     if x.device.type == "cpu":
         return bn_relu_conv_plain(x, w, scale, shift)
     if x.device.type != "cuda":
@@ -62,28 +127,37 @@ def fused_bn_relu_conv(x, w, scale, shift):
     x_cl = x.contiguous(memory_format=torch.channels_last)
     if x_cl.data_ptr() % 16:
         raise ValueError("link kernel needs 16-byte aligned x")
-    w9 = w.to(x.dtype).permute(2, 3, 1, 0).contiguous()  # (3, 3, Cin, Cout)
+    wgmma = x.dtype == torch.bfloat16
+    bm, bn, rh, rw, g, blocks = _plan(wgmma, b, h, wd, cout, _sms(x.device))
+    wp = pack_link_weights(w, x.dtype)
     scale, shift = scale.contiguous(), shift.contiguous()
     y = torch.empty((b, cout, h, wd), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
+    # the per-block partial sums, then the stats, in one allocation
+    sums = torch.empty(((blocks + 1) * 2 * cout,), dtype=torch.float32,
+                       device=x.device)
+    partial, stats = sums[:-2 * cout], sums[-2 * cout:].view(2, cout)
     lib = _lib()
-    tiles = lib.xas_conv_bn_link_tiles(b, h, wd)
-    partial = torch.empty((tiles, 2, cout), dtype=torch.float32,
-                          device=x.device)
-    stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with _build.device_guard(x):
         err = lib.xas_conv_bn_link(
-            _DTYPES[x.dtype], x_cl.data_ptr(), w9.data_ptr(),
+            _DTYPES[x.dtype], bm, bn, rh, rw, g, x_cl.data_ptr(),
+            wp.data_ptr(),
             scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
             partial.data_ptr(), stats.data_ptr(), b, h, wd, cin, cout,
             _build.stream_handle(x),
         )
     _build.check(lib, err, "conv_bn_link")
     fused_bn_relu_conv.launches += 1
+    if wgmma:
+        fused_bn_relu_conv.launches_wgmma += 1
+    else:
+        fused_bn_relu_conv.launches_fma += 1
     return y, stats
 
 
 fused_bn_relu_conv.launches = 0
+fused_bn_relu_conv.launches_wgmma = 0
+fused_bn_relu_conv.launches_fma = 0
 
 
 def fused_link_backward(x, w, scale, shift, y, gy, gstats):
@@ -148,13 +222,26 @@ def make_stats_fold(stats, gamma, beta, n: int, eps: float = 1e-5):
     return inv, beta - mean * inv
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(wgmma: bool, b: int, h: int, w: int, cout: int, sms: int):
+    """(BM, BN, RH, RW, G, pixel blocks) of a launch, once per shape."""
+    if not wgmma:
+        return (*FMA_TILE, 0, 0, 0, -(-b * h * w // FMA_TILE[0]))
+    tile = link_tile(b, h, w, cout, sms)
+    return (*tile, *link_regions(tile[0], h, w), link_blocks(b, h, w, tile))
+
+
 def _lib():
     lib = _build.load("conv_bn_link")
     fn = lib.xas_conv_bn_link
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [i, i, i, i, i, i, p, p, p, p, p, p, p, i, i, i, i,
+                       i, p]
         fn.restype = i
-        lib.xas_conv_bn_link_tiles.argtypes = [i, i, i]
-        lib.xas_conv_bn_link_tiles.restype = i
     return lib
