@@ -11,13 +11,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. versions, and the card's name and power limit from nvidia-smi;
 2. build: every csrc/*.cu with nvcc for sm_90a, all compilers started
-   together;
+   together; ptxas's registers and spills of the decode forward;
 3. kernels: each kernel at the shapes the serving path gives it, in fp32 and
    bf16, against its plain version on the same inputs (fp32 with TF32 off);
    kernel, plain and library times with CUDA events, each case with the
    path it took (link: wgmma and its tile, or FMA; conv3x3: tensor cores or
    CUDA cores); the conv's library time at the kernel's channels-last
-   layout, and at NCHW as ``library_nchw_ms``;
+   layout, and at NCHW as ``library_nchw_ms``; the decode forward at fp32
+   and bf16, B = 32 and 128, each with its launch plan (split, cluster,
+   stages), its resident blocks per SM and its share of the bound;
 4. serving: PoseEstimator with the HM36_Multi_SurS2 detector (ResNet-50,
    256^2 patches, K=18, D=64, 3 hypotheses) in bf16 at batch 32 on 64 seeded
    images, with seeded weights conditioned for a stable eval forward. The
@@ -184,13 +186,19 @@ def phase_build() -> None:
     for name in KERNELS:
         _build.load(name)
     emit(phase="build", seconds=time.perf_counter() - t0)
+    # ptxas -v of the decode forward: each variant's registers and spills
+    out = _build.compiler_output.get("integral_marginals", "not built here")
+    emit(phase="ptxas", kernel="integral_marginals",
+         lines=[ln.strip() for ln in out.splitlines()
+                if "registers" in ln or "spill" in ln or "Compiling" in ln])
 
 
 def _marginals_case(dtype, batch: int) -> dict:
     import torch
 
     from x_as_supervision_tpu_torch.ops.integral_kernel import (
-        integral_marginals, marginals_plain)
+        integral_marginals, marginals_kernel_info, marginals_plain,
+        marginals_plan)
 
     k, d = DETECTOR_PARAMS["num_kp"], DETECTOR_PARAMS["depth_dim"]
     side = PATCH // 4
@@ -206,17 +214,28 @@ def _marginals_case(dtype, batch: int) -> dict:
     check(torch.equal(got[3], want[3]), "marginals kernel: joint max differs")
     zerr = ((got[4] - want[4]).abs() / want[4]).max().item()
     check(zerr <= 1e-5, f"marginals kernel {dtype}: Z rel err {zerr}")
+    del got, want
     outputs = batch * k * (2 * side + d + 2) * 4
     nbytes = x.numel() * x.element_size() + outputs
     flops = 5.0 * x.numel()  # subtract, exp, three marginal adds
     bound, by = bound_ms(nbytes, flops, "fp32")
-    return dict(
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = marginals_plan(batch, k, d, side, side, dtype, sms)
+    ms = cuda_ms(lambda: integral_marginals(x, k), iters=50)
+    case = dict(
         name="integral_marginals", dtype=_kind(dtype),
-        shape=list(x.shape), max_abs_err=err,
-        ms=cuda_ms(lambda: integral_marginals(x, k)),
-        plain_ms=cuda_ms(lambda: marginals_plain(x, k)),
+        shape=list(x.shape), max_abs_err=err, z_rel_err=zerr,
+        plan=dict(split=plan.split, cluster=plan.split, stages=plan.stages,
+                  access_bytes=plan.access_bytes, chunks=plan.chunks,
+                  blocks=plan.blocks, waves=plan.waves),
+        card=marginals_kernel_info(plan, d, side, side),
+        ms=ms, plain_ms=cuda_ms(lambda: marginals_plain(x, k), iters=5),
         library_ms=None, bound_ms=bound, bound_by=by,
+        share_of_bound=bound / ms,
     )
+    del x
+    torch.cuda.empty_cache()
+    return case
 
 
 def _link_case(dtype, batch: int, c: int, side: int) -> dict:
@@ -446,8 +465,10 @@ def phase_kernels() -> list[dict]:
             for c, side, _ in LINK_SHAPES:
                 cases.append(_link_grad_case(dtype, TRAIN_IMAGES, c, side))
             torch.cuda.synchronize()
-        # the forward kernels at the training step's batch and type
+        # the forward kernels at the training step's batch and type, and
+        # the decode forward at fp32 there too
         cases.append(_marginals_case(torch.bfloat16, TRAIN_IMAGES))
+        cases.append(_marginals_case(torch.float32, TRAIN_IMAGES))
         for c, side, _ in LINK_SHAPES:
             cases.append(_link_case(torch.bfloat16, TRAIN_IMAGES, c, side))
         torch.cuda.synchronize()

@@ -52,17 +52,41 @@ def dev():
      torch.backends.cuda.matmul.allow_tf32) = saved
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [
-    (2, 3, 8, 8, 8),     # (B, K, D, H, W): small
-    (1, 2, 5, 6, 12),    # H*W/4 = 18 threads: a partly idle warp
-    (2, 18, 64, 64, 64),  # the serving shape
-])
-def test_marginals_kernel_matches_plain(dev, dtype, shape):
+def _marginals_input(dev, shape, fill, dtype):
     b, k, d, h, w = shape
     gen = torch.Generator(device=dev).manual_seed(0)
-    x = (torch.randn((b, k * d, h, w), generator=gen, device=dev) * 3
-         ).to(dtype)
+    x = torch.randn((b, k * d, h, w), generator=gen, device=dev) * 3
+    if fill == "constant":
+        x.fill_(0.75)
+    elif fill == "tie":
+        # every joint's max twice, in its first and last slice: in the
+        # first and last block of its cluster
+        vol = x.view(b, k, d, h, w)
+        vol[:, :, 0, 1, 2] = 20.0
+        vol[:, :, -1, h - 1, w - 3] = 20.0
+    elif fill == "steps":
+        # slices more than 80 apart: the rescales underflow to 0
+        step = (5 * torch.arange(d, device=dev)) % 7
+        x.view(b, k, d, h, w).add_(110.0 * step.view(1, 1, d, 1, 1))
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,fill", [
+    ((2, 3, 8, 8, 8), "randn"),     # (B, K, D, H, W): small
+    ((1, 2, 5, 6, 12), "randn"),    # 18 accesses of 256 threads; bf16 8-byte
+    ((2, 18, 64, 64, 64), "randn"),  # the serving shape at batch 2
+    ((128, 18, 64, 64, 64), "randn"),  # the training shape
+    ((2, 3, 8, 96, 96), "randn"),   # H*W > 4096: three chunks per slice
+    ((1, 2, 4, 7, 40), "randn"),    # ragged H
+    ((1, 2, 4, 68, 100), "randn"),  # H*W > 4096, bf16 W % 8 != 0
+    ((2, 3, 16, 64, 64), "constant"),
+    ((2, 3, 16, 64, 64), "tie"),
+    ((2, 3, 16, 64, 64), "steps"),
+])
+def test_marginals_kernel_matches_plain(dev, dtype, shape, fill):
+    b, k, d, h, w = shape
+    x = _marginals_input(dev, shape, fill, dtype)
     before = integral_marginals.launches
     got = integral_marginals(x, k)
     torch.cuda.synchronize()

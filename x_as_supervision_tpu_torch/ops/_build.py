@@ -5,8 +5,10 @@ header, so ``nvcc`` builds it in seconds. It is compiled for ``sm_90a`` into
 ``build/kernels/<name>-<hash>.so`` under the repository root at first use;
 the hash covers the source, every shared header ``csrc/*.cuh`` (the sources
 include them through ``-I csrc``) and the flags, so an edited source or
-header never loads a stale library. A failed build raises. Nothing here runs
-at import time.
+header never loads a stale library. A failed build raises. ptxas reports
+each kernel's registers and spills (``-Xptxas=-v``); the compiler's output of
+each source built by this process is kept in ``compiler_output``. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -26,10 +28,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+compiler_output: dict[str, str] = {}
 _lock = threading.Lock()
 
 
@@ -65,10 +68,11 @@ def build(*names: str) -> None:
                str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs.append((proc, cmd, tmp, lib))
+        jobs.append((name, proc, cmd, tmp, lib))
     failures = []
-    for proc, cmd, tmp, lib in jobs:
+    for name, proc, cmd, tmp, lib in jobs:
         out, _ = proc.communicate()
+        compiler_output[name] = out
         if proc.returncode != 0:
             failures.append(f"{' '.join(cmd)} -> {proc.returncode}\n{out}")
         else:
