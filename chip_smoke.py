@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (x_as_supervision_tpu_torch) on one
 NVIDIA card: builds the port's kernels, holds each against its plain PyTorch
 version at the shapes the serving and training paths give it, drives the
-serving path once and takes a few steps of the flagship fused GAN training
-step.
+serving path once, takes a few steps of the flagship fused GAN training
+step, and trains, checkpoints and evaluates the flagship config through the
+port's train and eval CLIs.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -39,10 +40,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the count of NCHW<->NHWC transpose kernels it still runs;
 7. train-parity: one fused step of a reduced flagship config (ResNet-50 at
    64^2, 2 cameras, batch 2, D = 16) in fp32 on the card, TF32 off, against
-   the same step on the CPU's plain path from the same weights and batch.
+   the same step on the CPU's plain path from the same weights and batch;
+8. train-eval: the flagship config written as JSON, trained for one epoch
+   through the train CLI (``--synthetic``: 128 samples, 4 steps of 4
+   cameras x 32 at 256^2, bf16) to its checkpoint 00000_ckpt, restored with
+   restore_resume into a fresh state (every tensor bitwise equal), then
+   scored through the eval CLI in best and in confident mode (4 batches of
+   4 cameras x 32): eval images per second from CUDA events around each
+   batch's device step, the host's share of the eval's wall time, the
+   triangulation's time per batch, the launches per batch (decode 4, link
+   28, all on wgmma; the counts set to 0 just before each eval and read just
+   after), and eval_result.txt, every number finite; then torch.profiler
+   over one more best-mode device step;
+9. eval-parity: the train-parity config's detector (conditioned), saved in
+   a checkpoint from the card and restored on the card and on the CPU, eval
+   in fp32 (TF32 off) on 8 samples in batches of 2 at img_size 64, both
+   modes, on the anchored fixture (x_as_supervision_tpu_torch.checks: the
+   detections lie near the GT, so the DLT is well posed): the detector's
+   raw hypotheses and the normalized outputs within 1e-3, the swap masks
+   and hypothesis choices equal or tied (the CPU's two candidate errors
+   within 1e-4 relative), the triangulation within 0.25 mm per joint,
+   eval_result.txt within 1e-4 relative.
 
 Earlier lines carry the findings as JSON; the line before the last lists the
-kernels, and the last line is {"ok": true, "device": {...}}.
+kernels (launches per training step, per serving forward and per eval
+batch), and the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -94,6 +116,14 @@ TRAIN_PATH_LAUNCHES = {
     "conv_bn_link": {"launches_wgmma": 14, "launches_fma": 0},
     "conv3x3": {"launches_tc": 14, "launches_cuda_core": 4},
 }
+# launches per eval batch: one detector forward per camera, each one decode
+# and seven links (all on wgmma in bf16); no backward, no physique net
+EVAL_LAUNCHES = {"integral_marginals": 4, "integral_marginals_bwd": 0,
+                 "conv_bn_link": 28, "conv3x3": 0}
+EVAL_MODES = ("best", "confident")
+# eval parity: samples, batch
+PARITY_SAMPLES = 8
+PARITY_BATCH = 2
 
 KERNELS = {
     "integral_marginals": dict(
@@ -809,6 +839,20 @@ def phase_train(top: int = 15) -> dict:
     return record
 
 
+def _parity_config() -> dict:
+    """The flagship config reduced for card-vs-CPU checks: ResNet-50 at
+    64^2, 2 cameras, batch 2, D = 16."""
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+
+    cfg = flagship_config()
+    mp, tp = cfg["model_params"], cfg["train_params"]
+    cfg["dataset_params"]["cam_id_list"] = mp["cam_id_list"] = [0, 1]
+    mp["detector_params"]["depth_dim"] = 16
+    tp["patch_width"] = tp["patch_height"] = 64
+    tp["batch_size"] = PARITY_BATCH
+    return cfg
+
+
 def phase_train_parity() -> dict:
     """One fused step of a reduced flagship config in fp32 on the card
     (TF32 off) against the CPU's plain path, from the same weights and
@@ -819,7 +863,6 @@ def phase_train_parity() -> dict:
     from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
     from x_as_supervision_tpu_torch.models.composed import generator_forward
     from x_as_supervision_tpu_torch.models.resnet import Bottleneck
-    from x_as_supervision_tpu_torch.train.factory import flagship_config
     from x_as_supervision_tpu_torch.train.state import train_step
     from x_as_supervision_tpu_torch.train.trainer import to_device
 
@@ -830,12 +873,8 @@ def phase_train_parity() -> dict:
                                     + state.disc_params, allow_unused=True)
         return dict(zip(_named_params(state), grads)), decode.kps.detach()
 
-    cfg = flagship_config()
-    mp, tp = cfg["model_params"], cfg["train_params"]
-    cfg["dataset_params"]["cam_id_list"] = mp["cam_id_list"] = [0, 1]
-    mp["detector_params"]["depth_dim"] = 16
-    tp["patch_width"] = tp["patch_height"] = 64
-    lr = float(tp["lr_kp_detector"])
+    cfg = _parity_config()
+    lr = float(cfg["train_params"]["lr_kp_detector"])
     batch = SyntheticPoseDataset(num_samples=2, cam_id_list=(0, 1),
                                  patch_size=64, seed=SEED).batch(0, 2)
     cpu_spec, cpu_state = _gan(cfg, torch.float32, "cpu", SEED)
@@ -943,6 +982,308 @@ def phase_train_parity() -> dict:
     return record
 
 
+def _reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+    from x_as_supervision_tpu_torch.ops.conv_bn import fused_bn_relu_conv
+
+    fused_bn_relu_conv.launches_wgmma = 0
+
+
+def phase_train_eval() -> dict:
+    """train CLI -> 00000_ckpt -> restore_resume -> eval CLI in both modes,
+    the flagship config at full width (see the module docstring)."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from x_as_supervision_tpu_torch.checks import (bitwise_diffs, flat,
+                                                   result_lines)
+    from x_as_supervision_tpu_torch.eval.__main__ import main as eval_main
+    from x_as_supervision_tpu_torch.ops import geometry as G
+    from x_as_supervision_tpu_torch.ops.conv_bn import fused_bn_relu_conv
+    from x_as_supervision_tpu_torch.train import checkpoint as ckpt
+    from x_as_supervision_tpu_torch.train.__main__ import main as train_main
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+
+    counters = _counters()
+    with tempfile.TemporaryDirectory() as root:
+        cfg = flagship_config()
+        cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
+        cfg_path = os.path.join(root, "flagship.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        log_dir = os.path.join(root, "log")
+        t0 = time.perf_counter()
+        trainer = train_main(["--config", cfg_path, "--synthetic", "--seed",
+                              str(SEED), "--log_dir", log_dir])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        (run,) = os.listdir(log_dir)
+        path = os.path.join(log_dir, run, "00000_ckpt")
+        check(sorted(os.listdir(os.path.join(log_dir, run)))
+              == ["00000_ckpt", "flagship.json"],
+              f"train CLI: run directory holds {os.listdir(log_dir)}")
+        check(trainer.state.step == TRAIN_IMAGES // TRAIN_BATCH,
+              f"train CLI: {trainer.state.step} steps, expected 4")
+        ckpt_mb = os.path.getsize(os.path.join(path, ckpt.STATE_FILE)) / 1e6
+
+        # restore into a fresh state: every tensor and count bitwise equal
+        # to the file and to the state that was saved
+        _, fresh = _gan(cfg, torch.bfloat16, "cuda", SEED + 7)
+        ckpt.restore_resume(path, fresh)
+        restored = flat(ckpt.state_dict(fresh))
+        saved = flat(ckpt.load_raw(path, "cuda"))
+        live = flat(ckpt.state_dict(trainer.state))
+        bad = bitwise_diffs(restored, saved) + bitwise_diffs(restored, live)
+        check(not bad, f"restore_resume: differs from the saved state at "
+                       f"{bad[:8]}")
+        n_tensors = sum(torch.is_tensor(v) for v in restored.values())
+        del trainer, fresh, restored, saved, live
+        torch.cuda.empty_cache()
+
+        modes = {}
+        for mode in EVAL_MODES:
+            _reset_counts()
+            ev = eval_main(["--config", cfg_path, "--checkpoint", path,
+                            "--synthetic", "--multi_hypo", mode])
+            torch.cuda.synchronize()
+            nb = ev.num_batches
+            launches = {name: fn.launches for name, fn in counters.items()}
+            wgmma = fused_bn_relu_conv.launches_wgmma
+            for name, per_batch in EVAL_LAUNCHES.items():
+                check(launches[name] == per_batch * nb,
+                      f"eval {mode}: {name} launched {launches[name]} times "
+                      f"in {nb} batches, expected {per_batch} per batch")
+            check(wgmma == EVAL_LAUNCHES["conv_bn_link"] * nb,
+                  f"eval {mode}: {wgmma} links on wgmma of {launches}")
+            lines = result_lines(ev.result_path)
+            check(len(lines) == 15 and all(
+                v is None or np.isfinite(v) for _, v in lines),
+                f"eval {mode}: eval_result.txt {lines}")
+            images = nb * ev.batch_size * len(ev.cam_id_list)
+            step_s = sum(ev.step_ms) / 1e3
+            steady = ev.step_ms[1:]
+            modes[mode] = dict(
+                batches=nb, images=images, step_ms=ev.step_ms,
+                img_per_s=images / step_s,
+                steady_img_per_s=(len(steady) * images / nb
+                                  / (sum(steady) / 1e3)),
+                wall_s=ev.wall_s, host_share=1.0 - step_s / ev.wall_s,
+                launches_per_batch={k: v / nb for k, v in launches.items()},
+                wgmma_per_batch=wgmma / nb,
+                ambiguity_ratio=ev.last_ambiguity_ratio,
+                eval_result=[f"{k}: {v}" if v is not None else k
+                             for k, v in lines])
+
+        # the triangulation of one batch, on the card
+        batch = ev.to_device(ev.dataset.batch(0, ev.batch_size))
+        check(ev.step(batch, "best")["tri"].device.type == "cuda",
+              "triangulation left the card")
+        cams, side = ev.cam_id_list, batch["cam_0_img"].shape[-2]
+        kp = {ck: c["kp"] for ck, c in ev.predict(batch, "best")[1].items()}
+        tri_ms = cuda_ms(lambda: G.triangulation(kp, batch, cams, side),
+                         iters=20)
+        # where one best-mode device step's time goes
+        torch.cuda.synchronize()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ev0.record()
+            ev.step(batch, "best")
+            ev1.record()
+            torch.cuda.synchronize()
+        window_us = ev0.elapsed_time(ev1) * 1e3
+        emit(phase="eval_profile", images=ev.batch_size * len(cams),
+             window_us=window_us, **_profile_rows(prof, window_us, 15))
+        del ev, batch, kp
+        torch.cuda.empty_cache()
+    record = dict(phase="train_eval", config="flagship, num_epochs 1, "
+                  "checkpoint_freq 1 (JSON)", train_cli_s=train_s,
+                  checkpoint_mb=ckpt_mb, restored_tensors=n_tensors,
+                  triangulation_ms=tri_ms, modes=modes)
+    emit(**record)
+    return record
+
+
+def _switch_errors(kps, gt):
+    """The CPU's L1 x/y errors of each joint (B, H, K) kept and L/R
+    swapped, and the 3D squared errors of each hypothesis after the switch
+    (B, H, K), as the evaluator computes them."""
+    import torch
+
+    from x_as_supervision_tpu_torch.train.eval_utils import (
+        DEFAULT_SWITCH_LIST, switch_points)
+
+    kps, gt = torch.from_numpy(kps), torch.from_numpy(gt)
+    b, nh, k, _ = kps.shape
+    perm = list(range(k))
+    for i, j in DEFAULT_SWITCH_LIST:
+        perm[i], perm[j] = j, i
+    gt_h = gt[:, None].expand(b, nh, k, 3)
+    kept = (kps - gt_h).abs()[..., :2].sum(-1)
+    swapped = (kps[:, :, perm] - gt_h).abs()[..., :2].sum(-1)
+    sw3d, _ = switch_points(kps.reshape(b * nh, k, 3),
+                            gt_h.reshape(b * nh, k, 3), switch_all=False)
+    err3 = ((sw3d.reshape(b, nh, k, 3) - gt_h) ** 2).sum(-1)
+    return kept.numpy(), swapped.numpy(), err3.numpy()
+
+
+def _tied(a, b) -> np.ndarray:
+    return np.abs(a - b) <= 1e-4 * np.maximum(np.abs(a), np.abs(b))
+
+
+def phase_eval_parity() -> dict:
+    """One fp32 eval of the train-parity config's detector on the card and
+    on the CPU from one checkpoint saved on the card, on the anchored
+    fixture (see the module docstring)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from x_as_supervision_tpu_torch import weights
+    from x_as_supervision_tpu_torch.checks import (AnchoredDataset,
+                                                   AnchoredDetector,
+                                                   result_lines)
+    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from x_as_supervision_tpu_torch.models.detector import build_detector
+    from x_as_supervision_tpu_torch.train import checkpoint as ckpt
+    from x_as_supervision_tpu_torch.train.evaluator import Evaluator, fetch
+
+    cfg = _parity_config()
+    cams = cfg["model_params"]["cam_id_list"]
+    ds = SyntheticPoseDataset(num_samples=PARITY_SAMPLES, cam_id_list=cams,
+                              patch_size=64, seed=SEED)
+    cpu_spec, _ = _gan(cfg, torch.float32, "cpu", SEED)
+    cond = torch.from_numpy(np.concatenate(
+        [ds.batch(0, PARITY_SAMPLES)[f"cam_{c}_img"] for c in cams]))
+    weights.condition_for_eval(cpu_spec.detector,
+                               cond.permute(0, 3, 1, 2).contiguous())
+    card_spec, card_state = _gan(cfg, torch.float32, "cuda", SEED)
+    for name in ("detector", "physique", "discriminator"):
+        getattr(card_spec, name).load_state_dict(
+            getattr(cpu_spec, name).state_dict())
+    del cpu_spec
+    data = AnchoredDataset(ds, cams, 64.0)
+    flips = {"swap": 0, "choice": 0}
+    out_err = {"detector": 0.0, "kp_pred_2d": 0.0, "kp_pred": 0.0,
+               "gts_2d": 0.0}
+    world_err = {"per_cam_world": 0.0, "kps_world_gt": 0.0, "tri": 0.0}
+    lines_err = {}
+    with tempfile.TemporaryDirectory() as root:
+        path = ckpt.save_checkpoint(root, 0, card_state)
+        del card_spec, card_state
+        evs = {}
+        for dev in ("cuda", "cpu"):
+            det = build_detector(cfg["model_params"]["detector_params"])
+            det.load_state_dict(ckpt.restore_detector(path, dev))
+            evs[dev] = Evaluator(cfg, AnchoredDetector(det), data,
+                                 os.path.join(root, dev), img_size=64.0,
+                                 device=dev)
+        card, cpu = evs["cuda"], evs["cpu"]
+
+        def raw(ev, batch, ck):
+            with torch.inference_mode():
+                img = batch[f"{ck}_img"].permute(0, 3, 1, 2)
+                return ev.detector.detector(img).kps.cpu()
+
+        set_tf32(False)
+        try:
+            for mode in EVAL_MODES:
+                for b in range(cpu.num_batches):
+                    batch = data.batch(b * PARITY_BATCH, PARITY_BATCH)
+                    gdev, wdev = card.to_device(batch), cpu.to_device(batch)
+                    got = fetch(card.step(gdev, mode))
+                    want = fetch(cpu.step(wdev, mode))
+                    gsel, wsel = card.predict(gdev, mode)[1], cpu.predict(
+                        wdev, mode)[1]
+                    # joints where a camera's discrete choice flipped
+                    flipped = np.zeros(want["tri"].shape[:2], dtype=bool)
+                    for c in cams:
+                        ck = f"cam_{c}"
+                        out_err["detector"] = max(out_err["detector"], float(
+                            (raw(card, gdev, ck) - raw(cpu, wdev, ck))
+                            .abs().max()))
+                        kept, swapped, err3 = _switch_errors(
+                            wsel[ck]["kps"].numpy(), wsel[ck]["gt"].numpy())
+                        gm = got["trans_masks"][ck][..., 0]
+                        wm = want["trans_masks"][ck][..., 0]
+                        off = gm != wm
+                        check(_tied(kept[:, -1], swapped[:, -1])[off].all(),
+                              f"eval parity {mode}: swap differs where the "
+                              f"CPU's candidates are not tied")
+                        gb = gsel[ck]["choice"].cpu().numpy()
+                        wb = wsel[ck]["choice"].numpy()
+                        pick = lambda i: np.take_along_axis(
+                            err3, i[:, None], axis=1)[:, 0]
+                        moved = gb != wb
+                        check(_tied(pick(gb), pick(wb))[moved].all(),
+                              f"eval parity {mode}: hypothesis choice "
+                              f"differs where the CPU's errors are not tied")
+                        flips["swap"] += int(off.sum())
+                        flips["choice"] += int(moved.sum())
+                        flipped |= off | moved
+                        same = ~(off | moved)[..., None]
+                        pairs = {
+                            "kp_pred_2d": (got["kp_pred_2d"][ck],
+                                           want["kp_pred_2d"][ck]),
+                            "gts_2d": (got["gts_2d"][ck], want["gts_2d"][ck]),
+                            "kp_pred": (gsel[ck]["kp"].cpu().numpy(),
+                                        wsel[ck]["kp"].numpy())}
+                        for key, (g, w) in pairs.items():
+                            out_err[key] = max(out_err[key], float(
+                                (np.abs(g - w) * same).max()))
+                        d = np.abs(got["per_cam_world"][ck]
+                                   - want["per_cam_world"][ck])
+                        world_err["per_cam_world"] = max(
+                            world_err["per_cam_world"], float(d.max()))
+                    world_err["kps_world_gt"] = max(
+                        world_err["kps_world_gt"], float(np.abs(
+                            got["kps_world_gt"] - want["kps_world_gt"]).max()))
+                    d = np.abs(got["tri"] - want["tri"])[~flipped]
+                    world_err["tri"] = max(world_err["tri"],
+                                           float(d.max(initial=0.0)))
+                # normalized coordinates: the serve phase's bound
+                check(max(out_err.values()) <= 1e-3,
+                      f"eval parity {mode}: outputs off by {out_err}")
+                # world mm: the fp32 DLT's own floor (either device)
+                check(world_err["tri"] <= 0.25,
+                      f"eval parity {mode}: triangulation off by "
+                      f"{world_err['tri']} mm")
+                got_lines = result_lines(card.record(*card.eval(mode)))
+                want_lines = result_lines(cpu.record(*cpu.eval(mode)))
+                check([k for k, _ in got_lines] == [k for k, _ in want_lines],
+                      f"eval parity {mode}: eval_result.txt keys differ")
+                rel = []
+                for (key, g), (_, w) in zip(got_lines, want_lines):
+                    if w is None:
+                        continue
+                    check(np.isfinite(g) and abs(g - w) <= 1e-4 * abs(w),
+                          f"eval parity {mode}: {key} {g} vs {w}")
+                    rel.append(abs(g - w) / max(abs(w), 1e-30))
+                lines_err[mode] = max(rel)
+                check(card.last_ambiguity_ratio == cpu.last_ambiguity_ratio
+                      or flips["swap"] > 0,
+                      f"eval parity {mode}: ambiguity ratio "
+                      f"{card.last_ambiguity_ratio} vs "
+                      f"{cpu.last_ambiguity_ratio}")
+        finally:
+            set_tf32(True)
+    record = dict(phase="eval_parity", dtype="fp32",
+                  config="flagship reduced: ResNet-50 at 64^2, 2 cameras, "
+                         "batch 2, D = 16; 8 samples, img_size 64; anchored "
+                         "detections",
+                  normalized_max_err=out_err, world_max_err_mm=world_err,
+                  flips=flips, eval_result_max_rel_err=lines_err,
+                  ambiguity_ratio=cpu.last_ambiguity_ratio)
+    emit(**record)
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -963,6 +1304,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         train = phase_train()
         phase_train_parity()
+        train_eval = phase_train_eval()
+        phase_eval_parity()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -992,6 +1335,8 @@ def main() -> int:
             library_nchw_ms=case.get("library_nchw_ms"),
             path_launches=train["path_launches_per_step"].get(name),
             serve_launches=serve["launches"].get(name),
+            eval_launches=train_eval["modes"]["best"][
+                "launches_per_batch"][name],
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -333,3 +333,68 @@ def test_detector_on_card_matches_cpu(dev):
     assert fused_bn_relu_conv.launches - link0 == 7
     # fp32 through 50 conditioned layers, convs summed in another order
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("switch_all", [False, True])
+def test_switch_points_on_card_matches_cpu(dev, switch_all):
+    """The eval's L/R switch on CUDA tensors: the same points and masks as
+    on the CPU, ties (points equal to their own swap) kept."""
+    from x_as_supervision_tpu_torch.train.eval_utils import (
+        DEFAULT_SWITCH_LIST, switch_points)
+
+    gen = torch.Generator().manual_seed(0)
+    pts = torch.rand((64, 18, 3), generator=gen) * 2 - 1
+    gt = torch.rand((64, 18, 3), generator=gen) * 2 - 1
+    perm = list(range(18))
+    for a, b in DEFAULT_SWITCH_LIST:
+        perm[a], perm[b] = b, a
+    pts[:8] = (pts[:8] + pts[:8, perm]) / 2
+    want, want_mask = switch_points(pts, gt, switch_all=switch_all)
+    got, got_mask = switch_points(pts.to(dev), gt.to(dev),
+                                  switch_all=switch_all)
+    assert torch.equal(got_mask.cpu(), want_mask)
+    assert torch.equal(got.cpu(), want)
+    assert not want_mask[:8].any()
+
+
+def test_argmin_on_card_takes_the_first_of_ties(dev):
+    """Best-mode eval relies on it: the hypotheses' 2D errors are equal."""
+    gen = torch.Generator().manual_seed(1)
+    err = torch.rand((32, 3, 18), generator=gen)
+    err[:, 1] = err[:, 0]  # 0 and 1 tied everywhere
+    err[:16, 2] = err[:16, 0]  # all three tied in half the batch
+    err[::2, 2] = err[::2, 0] + 1  # never the minimum there
+    want = torch.argmin(err, dim=1)
+    got = torch.argmin(err.to(dev), dim=1).cpu()
+    assert torch.equal(got, want)
+    assert (want != 1).all()
+    assert (want[:16] == 0).all()
+
+
+def test_triangulation_on_card_matches_cpu(dev):
+    """The DLT's batched SVD on the card (cuSOLVER) against the CPU's on
+    exact projections of known world points: both recover them."""
+    from x_as_supervision_tpu_torch.ops.geometry import batch_triangulate
+
+    rng = np.random.default_rng(2)
+    world = rng.normal(0, 500, (32, 18, 3))
+    pts, pmats = [], []
+    for _ in range(4):
+        rot = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+        t = np.array([0.0, 0.0, 5000.0]) + rng.normal(0, 100, 3)
+        k = np.array([[1100.0, 0, 500], [0, 1100.0, 500], [0, 0, 1]])
+        p = k @ np.concatenate([rot, t[:, None]], axis=1)
+        h = world @ p[:, :3].T + p[:, 3]
+        pts.append(np.concatenate([h[..., :2] / h[..., 2:], h[..., 2:]],
+                                  axis=-1))
+        pmats.append(np.broadcast_to(p, (32, 3, 4)))
+    kp = torch.from_numpy(np.stack(pts, axis=1)).float()
+    pm = torch.from_numpy(np.stack(pmats, axis=1).copy()).float()
+    want = batch_triangulate(kp, pm)
+    got = batch_triangulate(kp.to(dev), pm.to(dev))
+    assert got.device.type == "cuda"
+    # the fp32 DLT keeps about 4 digits of a system whose 4th column (the
+    # cameras 5 m away) is ~1e3 times the others: 0.26 mm off on the CPU
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1.0)
+    torch.testing.assert_close(want[..., :3], torch.from_numpy(world).float(),
+                               rtol=0, atol=1.0)

@@ -159,7 +159,8 @@ def test_train_cli_runs_on_cpu(tmp_path):
     res = subprocess.run(
         [sys.executable, "-m", "x_as_supervision_tpu_torch.train",
          "--config", str(tmp_path / "cfg.yaml"), "--synthetic", "--seed", "0",
-         "--steps", "2", "--device", "cpu", "--fp32"],
+         "--steps", "2", "--device", "cpu", "--fp32",
+         "--log_dir", str(tmp_path / "log")],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith("step ")]

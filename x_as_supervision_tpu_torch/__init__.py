@@ -2,22 +2,28 @@
 for NVIDIA Hopper (H100).
 
 The JAX package beside it is the reference; this package imports nothing of
-it, nor JAX. What is ported so far is the serving path and the flagship
-fused GAN training step:
+it, nor JAX. What is ported so far is the serving path, the flagship fused
+GAN training step with its checkpoints, and the eval that scores them:
 
   serve.py    PoseEstimator: preprocess, batched detector forward, pixels,
               patch -> world lift
   infer.py    the inference CLI (python -m x_as_supervision_tpu_torch.infer)
   train/      GAN spec factory, train state and fused step, trainer and its
-              CLI (python -m x_as_supervision_tpu_torch.train)
+              CLI (python -m x_as_supervision_tpu_torch.train), checkpoints
+              and their restore modes, the evaluator, its metrics and
+              tables
+  eval/       the eval CLI (python -m x_as_supervision_tpu_torch.eval)
   models/     ResNet backbone + deconv head, integral detectors (eval and
               train), physique net, discriminator, composed GAN losses
   ops/        integral decode and its gradient, fused BN->ReLU->conv3x3
-              link, small-channel conv3x3, renderer and geometry, losses, and
-              the ctypes bindings of the CUDA kernels in csrc/
+              link, small-channel conv3x3, renderer, geometry and the DLT
+              triangulation, losses, and the ctypes bindings of the CUDA
+              kernels in csrc/
   data/       the synthetic multi-camera pose fixture
+  checks.py   helpers shared by the tests and chip_smoke.py (the anchored
+              eval fixture, eval_result.txt reader, state comparison)
   weights.py  JAX variables -> state_dicts; seeded weights
-  config.py   YAML config loading
+  config.py   YAML / JSON config loading
 """
 
 import torch as _torch

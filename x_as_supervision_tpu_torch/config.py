@@ -1,21 +1,26 @@
-"""YAML config loading: the port's own copy of the JAX package's config.py
-(same schema: dataset_params / model_params / train_params, the same checks,
-and cam_id_list copied into model_params). ``yaml`` is imported on use, so
-the package imports on a machine without it."""
+"""Config loading: the port's own copy of the JAX package's config.py (same
+schema: dataset_params / model_params / train_params, the same checks, and
+cam_id_list copied into model_params). A ``.json`` file is read with the
+``json`` module, anything else as YAML; ``yaml`` is imported on use, so the
+package imports, and reads JSON configs, on a machine without it."""
 
 from __future__ import annotations
 
 import copy
+import json
 from pathlib import Path
 
 REQUIRED_SECTIONS = ("dataset_params", "model_params", "train_params")
 
 
 def load_config(path: str | Path) -> dict:
-    import yaml
-
     with open(path) as f:
-        cfg = yaml.safe_load(f)
+        if str(path).endswith(".json"):
+            cfg = json.load(f)
+        else:
+            import yaml
+
+            cfg = yaml.safe_load(f)
     for section in REQUIRED_SECTIONS:
         if section not in cfg:
             raise ValueError(f"config {path} missing section '{section}'")

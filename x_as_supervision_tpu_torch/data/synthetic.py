@@ -171,3 +171,15 @@ class SyntheticPoseDataset:
                 continue
             out[key] = np.stack([s[key] for s in samples])
         return out
+
+
+def synthetic_dataset(config: dict) -> SyntheticPoseDataset:
+    """The fixture the train and eval CLIs use with ``--synthetic``, sized as
+    the JAX package's train.py:build_dataset sizes it."""
+    tp = config["train_params"]
+    return SyntheticPoseDataset(
+        num_samples=max(tp["batch_size"] * 4, 64),
+        cam_id_list=config["dataset_params"]["cam_id_list"],
+        patch_size=tp.get("patch_width", 256),
+        rect_3d_width=tp.get("rect_3d_width", 2000),
+    )

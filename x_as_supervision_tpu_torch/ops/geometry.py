@@ -1,5 +1,6 @@
-"""The skeleton line renderer and the patch -> image -> world keypoint
-conversions, ported from the JAX package's ops/geometry.py.
+"""The skeleton line renderer, the patch -> image -> world keypoint
+conversions and the multi-view DLT triangulation, ported from the JAX
+package's ops/geometry.py.
 
 Conventions: keypoints are (..., K, 3) with channels (x, y, z), x the image
 column and y the row. "patch" coords are pixels of the square crop,
@@ -120,3 +121,57 @@ def convert_patch_to_world(keypoints, trans_image, pelvis, k_mat,
         kp_img, k_mat[..., 0, [0]], k_mat[..., 1, [1]], k_mat[..., 0, [2]],
         k_mat[..., 1, [2]], trans_world, rot_world,
     )
+
+
+def _batch_matmul(a, b):
+    """(..., I, J) @ (..., J, L) as fp32 products and sums: exact fp32
+    whatever the card's TF32 setting (the JAX package's HIGHEST)."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(dim=-2)
+
+
+def batch_triangulate(keypoints, p_all):
+    """DLT SVD triangulation of multi-view 2D detections.
+
+    keypoints (B, V, K, 3): image pixels, confidence in channel 2 (the
+    metric depth, used only as a positive per-view weight); p_all
+    (B, V, 3, 4) projection matrices. Returns (B, K, 4): world xyz and the
+    mean confidence over the views that see the joint. The (B, K, 2V, 4)
+    system is solved by one batched SVD on the keypoints' device; the null
+    vector's free sign goes away in the division by its 4th entry."""
+    conf_all = keypoints[..., -1]
+    vis = (conf_all > 0).to(keypoints.dtype).sum(dim=1)  # (B, K)
+    conf3d = conf_all.sum(dim=1) / vis
+
+    p0 = p_all[:, None, :, 0, :]  # (B, 1, V, 4)
+    p1 = p_all[:, None, :, 1, :]
+    p2 = p_all[:, None, :, 2, :]
+    u = keypoints[..., 0].transpose(1, 2)[..., None]  # (B, K, V, 1)
+    v = keypoints[..., 1].transpose(1, 2)[..., None]
+    conf = keypoints[..., 2].transpose(1, 2)[..., None]
+    a = torch.cat([conf * (u * p2 - p0), conf * (v * p2 - p1)], dim=2)
+
+    _, _, vh = torch.linalg.svd(a, full_matrices=True)
+    x = vh[:, :, -1, :]  # (B, K, 4)
+    x = x / x[..., 3:]
+    return torch.cat([x[..., :3], conf3d[..., None]], dim=-1)
+
+
+def triangulation(keypoints: dict, batch: dict, cam_id_list, side: int):
+    """Per-camera patch -> image lift, then the DLT over all cameras.
+
+    keypoints {"cam_<id>": (B, K, 3)} normalized patch coordinates, a
+    2000 mm box (the JAX package's defaults); batch holds each camera's
+    ``cam_<id>_{trans_image,pelvis,k_mat,trans_world,rot_world}``; side the
+    square patch side (the JAX package reads it from the image batch).
+    Returns world mm (B, K, 3)."""
+    points, pmats = [], []
+    for cam_id in cam_id_list:
+        ck = f"cam_{cam_id}"
+        points.append(convert_patch_to_image(
+            keypoints[ck], batch[f"{ck}_trans_image"], side, side, side,
+            2000.0 / side, batch[f"{ck}_pelvis"]))
+        extrinsic = torch.cat([batch[f"{ck}_rot_world"],
+                               batch[f"{ck}_trans_world"][..., None]], dim=-1)
+        pmats.append(_batch_matmul(batch[f"{ck}_k_mat"], extrinsic))
+    return batch_triangulate(torch.stack(points, dim=1),
+                             torch.stack(pmats, dim=1))[..., :3]

@@ -59,7 +59,8 @@ def _adam(params):
 
 class TrainState:
     """The GAN's modules (through the spec), its two optimizers and their
-    update counts, the carried discriminator gradient and the step."""
+    update counts, the carried discriminator gradient, the step and the
+    number of finished epochs."""
 
     def __init__(self, spec: GanSpec, train_params: dict,
                  steps_per_epoch: int, disc_every: int = 1,
@@ -90,6 +91,7 @@ class TrainState:
         self.pending_disc_grads = [torch.zeros_like(p)
                                    for p in self.disc_params]
         self.step = 0
+        self.epoch = 0
 
 
 def _filled(grads, params):
