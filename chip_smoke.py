@@ -36,22 +36,34 @@ Phases, each of which fails the run (nonzero exit, no result line):
    loss. The launch counts are set to 0 just before the timed steps and read
    just after: per step decode forward 2, decode backward 2, link 14 (all on
    wgmma), physique conv 10 forward + 8 input gradients (14 on tensor
-   cores, 4 on CUDA cores). Then torch.profiler over one more step, with
-   the count of NCHW<->NHWC transpose kernels it still runs;
+   cores, 4 on CUDA cores). Then a vis step (``with_outputs``, the launches
+   of a step) timed against a plain one by CUDA events in turns (plain,
+   vis, vis, plain), and the host's logging of it: the one fetch of the
+   metrics, the one fetch of the outputs, tb_vis into an event file. Then
+   torch.profiler over one more step, with the count of NCHW<->NHWC
+   transpose kernels it still runs;
 7. train-parity: one fused step of a reduced flagship config (ResNet-50 at
    64^2, 2 cameras, batch 2, D = 16) in fp32 on the card, TF32 off, against
    the same step on the CPU's plain path from the same weights and batch;
 8. train-eval: the flagship config written as JSON, trained for one epoch
    through the train CLI (``--synthetic``: 128 samples, 4 steps of 4
-   cameras x 32 at 256^2, bf16) to its checkpoint 00000_ckpt, restored with
-   restore_resume into a fresh state (every tensor bitwise equal), then
+   cameras x 32 at 256^2, bf16) to its checkpoint 00000_ckpt, with the
+   launches per step of phase 6 (counts set to 0 just before the CLI and
+   read just after) and its TensorBoard events read back by
+   x_as_supervision_tpu_torch.checks.read_events (every CRC checked; one
+   file_version record; at each of the 4 steps the flagship losses, the
+   total, smpl_disc and the learning rate; at step 0 only, every tb_vis
+   panel, written or counted as skipped where cv2 or matplotlib is
+   missing), restored with restore_resume into a fresh state (every tensor
+   bitwise equal), then
    scored through the eval CLI in best and in confident mode (4 batches of
    4 cameras x 32): eval images per second from CUDA events around each
    batch's device step, the host's share of the eval's wall time, the
    triangulation's time per batch, the launches per batch (decode 4, link
    28, all on wgmma; the counts set to 0 just before each eval and read just
-   after), and eval_result.txt, every number finite; then torch.profiler
-   over one more best-mode device step;
+   after), each batch's pose panels in <run>/eval/tensorboard (written or
+   counted as skipped), and eval_result.txt, every number finite; then
+   torch.profiler over one more best-mode device step;
 9. eval-parity: the train-parity config's detector (conditioned), saved in
    a checkpoint from the card and restored on the card and on the CPU, eval
    in fp32 (TF32 off) on 8 samples in batches of 2 at img_size 64, both
@@ -70,6 +82,7 @@ batch), and the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -121,6 +134,9 @@ TRAIN_PATH_LAUNCHES = {
 EVAL_LAUNCHES = {"integral_marginals": 4, "integral_marginals_bwd": 0,
                  "conv_bn_link": 28, "conv3x3": 0}
 EVAL_MODES = ("best", "confident")
+# the flagship losses, logged as training_loss/<name> at every log step
+FLAGSHIP_LOSSES = ("physique_recons", "reconstruction", "smpl_gen",
+                   "smpl_pseudo_img", "symmetry")
 # eval parity: samples, batch
 PARITY_SAMPLES = 8
 PARITY_BATCH = 2
@@ -754,13 +770,15 @@ def phase_train(top: int = 15) -> dict:
     spec, state = _gan(cfg, torch.bfloat16, "cuda", SEED)
     ds = SyntheticPoseDataset(num_samples=TRAIN_BATCH * (TRAIN_STEPS + 2),
                               cam_id_list=cams, patch_size=PATCH, seed=SEED)
-    batches = [to_device(ds.batch(i * TRAIN_BATCH, TRAIN_BATCH), "cuda")
-               for i in range(TRAIN_STEPS + 2)]
+    host_batches = [ds.batch(i * TRAIN_BATCH, TRAIN_BATCH)
+                    for i in range(TRAIN_STEPS + 2)]
+    batches = [to_device(b, "cuda") for b in host_batches]
     setup_s = time.perf_counter() - t0
     start = {n: p.detach().clone() for n, p in _named_params(state).items()}
 
-    def step(i):
-        return train_step(state, batches[i], step_generator(SEED, i, "cuda"))
+    def step(i, with_outputs=False):
+        return train_step(state, batches[i], step_generator(SEED, i, "cuda"),
+                          with_outputs=with_outputs)
 
     step(0)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
@@ -807,6 +825,8 @@ def phase_train(top: int = 15) -> dict:
                   f"train: {name}.{attr} = {path_launches[name][attr]} in "
                   f"{TRAIN_STEPS} steps, expected {per_step} per step")
 
+    vis = _vis_step(cfg, step, host_batches, counters)
+
     # one more step under the profiler
     ev0, ev1 = (torch.cuda.Event(enable_timing=True),
                 torch.cuda.Event(enable_timing=True))
@@ -830,12 +850,89 @@ def phase_train(top: int = 15) -> dict:
             name: {a: v / TRAIN_STEPS for a, v in attrs.items()}
             for name, attrs in path_launches.items()},
         losses=losses, params_unmoved=unmoved,
-        max_param_change=max(moved.values()),
+        max_param_change=max(moved.values()), vis_step=vis,
     )
     emit(**record)
     emit(phase="train_profile", window_us=window_us,
          layout_transposes=_layout_transposes(prof),
          **_profile_rows(prof, window_us, top))
+    return record
+
+
+def _vis_step(cfg: dict, step, host_batches, counters) -> dict:
+    """A steady-state step with the visualization outputs (a vis step of a
+    logging run) against one without, by CUDA events in turns (plain, vis,
+    vis, plain) after one warm-up of each, with the launches of a vis step;
+    then the host's logging of that step: the one fetch of the metrics, the
+    one fetch of the outputs and tb_vis's scalars and panels into an event
+    file."""
+    import tempfile
+
+    import torch
+
+    from x_as_supervision_tpu_torch.checks import events_in
+    from x_as_supervision_tpu_torch.train.evaluator import fetch
+    from x_as_supervision_tpu_torch.train.logging import (SummaryWriter,
+                                                          tb_vis)
+
+    step(1, with_outputs=True)
+    step(2)
+    torch.cuda.synchronize()
+    _reset_counts()
+    metrics, outputs = step(3, with_outputs=True)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, per_step in TRAIN_LAUNCHES.items():
+        check(launches[name] == per_step,
+              f"vis step: {name} launched {launches[name]} times, expected "
+              f"{per_step}")
+    times = {"plain": [], "vis": []}
+    for kind in ("plain", "vis", "vis", "plain"):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+        ev0.record()
+        step(2 if kind == "plain" else 3, with_outputs=kind == "vis")
+        ev1.record()
+        torch.cuda.synchronize()
+        times[kind].append(ev0.elapsed_time(ev1))
+
+    mp = cfg["model_params"]
+    with tempfile.TemporaryDirectory() as d:
+        writer = SummaryWriter(d)
+        t0 = time.perf_counter()
+        keys = sorted(metrics)
+        packed = torch.stack([metrics[k].float().mean()
+                              for k in keys]).cpu().numpy()
+        fetched = dict(zip(keys, packed))
+        t1 = time.perf_counter()
+        outs = fetch(outputs)
+        t2 = time.perf_counter()
+        tb_vis(writer, 0, np.array(mp["flip_pairs"]),
+               np.array(mp["parent_ids"]), fetched["loss_total"],
+               {k[5:]: v for k, v in fetched.items()
+                if k.startswith("loss/")},
+               fetched["loss_disc"], outs, host_batches[3], cfg,
+               detector_lr=1e-4)
+        writer.close()
+        t3 = time.perf_counter()
+        (events,) = events_in(d).values()
+        event_bytes = sum(os.path.getsize(os.path.join(d, f))
+                          for f in os.listdir(d))
+    panels = sorted(t for e in events for t in e["images"])
+    check(all(np.isfinite(v) for e in events for v in e["scalars"].values()),
+          "vis step: a non-finite scalar")
+    # per camera 7 of the generator and 4 of the discriminator; the depth
+    # map of camera 0 and the GT world pose
+    check(len(outs) == 11 * len(cfg["dataset_params"]["cam_id_list"]) + 2,
+          f"vis step: {len(outs)} outputs {sorted(outs)}")
+    record = dict(step_ms=times, launches=launches,
+                  extra_ms=(sum(times["vis"]) - sum(times["plain"])) / 2,
+                  fetch_metrics_ms=(t1 - t0) * 1e3,
+                  fetch_outputs_ms=(t2 - t1) * 1e3,
+                  tb_vis_host_ms=(t3 - t2) * 1e3,
+                  outputs=len(outs), panels=len(panels),
+                  skipped=dict(writer.skipped), event_bytes=event_bytes)
+    emit(phase="vis_step", **record)
     return record
 
 
@@ -993,7 +1090,6 @@ def _reset_counts() -> None:
 def phase_train_eval() -> dict:
     """train CLI -> 00000_ckpt -> restore_resume -> eval CLI in both modes,
     the flagship config at full width (see the module docstring)."""
-    import os
     import tempfile
 
     import torch
@@ -1016,18 +1112,31 @@ def phase_train_eval() -> dict:
         with open(cfg_path, "w") as f:
             json.dump(cfg, f)
         log_dir = os.path.join(root, "log")
+        _reset_counts()
         t0 = time.perf_counter()
         trainer = train_main(["--config", cfg_path, "--synthetic", "--seed",
                               str(SEED), "--log_dir", log_dir])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+        steps = TRAIN_IMAGES // TRAIN_BATCH
+        check(trainer.state.step == steps,
+              f"train CLI: {trainer.state.step} steps, expected {steps}")
+        train_launches = {name: fn.launches for name, fn in counters.items()}
+        for name, per_step in TRAIN_LAUNCHES.items():
+            check(train_launches[name] == per_step * steps,
+                  f"train CLI: {name} launched {train_launches[name]} times "
+                  f"in {steps} steps, expected {per_step} per step")
+        check(fused_bn_relu_conv.launches_wgmma
+              == TRAIN_LAUNCHES["conv_bn_link"] * steps,
+              f"train CLI: {fused_bn_relu_conv.launches_wgmma} links on "
+              f"wgmma of {train_launches}")
         (run,) = os.listdir(log_dir)
         path = os.path.join(log_dir, run, "00000_ckpt")
         check(sorted(os.listdir(os.path.join(log_dir, run)))
-              == ["00000_ckpt", "flagship.json"],
+              == ["00000_ckpt", "flagship.json", "tensorboard"],
               f"train CLI: run directory holds {os.listdir(log_dir)}")
-        check(trainer.state.step == TRAIN_IMAGES // TRAIN_BATCH,
-              f"train CLI: {trainer.state.step} steps, expected 4")
+        train_events = _train_events(
+            cfg, os.path.join(log_dir, run, "tensorboard"), trainer, steps)
         ckpt_mb = os.path.getsize(os.path.join(path, ckpt.STATE_FILE)) / 1e6
 
         # restore into a fresh state: every tensor and count bitwise equal
@@ -1059,6 +1168,7 @@ def phase_train_eval() -> dict:
                       f"in {nb} batches, expected {per_batch} per batch")
             check(wgmma == EVAL_LAUNCHES["conv_bn_link"] * nb,
                   f"eval {mode}: {wgmma} links on wgmma of {launches}")
+            eval_events = _eval_events(ev, mode)
             lines = result_lines(ev.result_path)
             check(len(lines) == 15 and all(
                 v is None or np.isfinite(v) for _, v in lines),
@@ -1074,6 +1184,8 @@ def phase_train_eval() -> dict:
                 wall_s=ev.wall_s, host_share=1.0 - step_s / ev.wall_s,
                 launches_per_batch={k: v / nb for k, v in launches.items()},
                 wgmma_per_batch=wgmma / nb,
+                panels_per_batch=eval_events["panels_per_batch"],
+                panels_skipped=eval_events["skipped"],
                 ambiguity_ratio=ev.last_ambiguity_ratio,
                 eval_result=[f"{k}: {v}" if v is not None else k
                              for k, v in lines])
@@ -1103,9 +1215,109 @@ def phase_train_eval() -> dict:
         torch.cuda.empty_cache()
     record = dict(phase="train_eval", config="flagship, num_epochs 1, "
                   "checkpoint_freq 1 (JSON)", train_cli_s=train_s,
+                  train_launches_per_step={k: v / steps for k, v in
+                                           train_launches.items()},
+                  train_events=train_events,
                   checkpoint_mb=ckpt_mb, restored_tensors=n_tensors,
                   triangulation_ms=tri_ms, modes=modes)
     emit(**record)
+    return record
+
+
+def _expect_all(got: dict, skipped: dict, want: set, what: str) -> None:
+    """Every tag of `want` written (in `got`) or counted as skipped."""
+    bare = {t.rsplit(" skeleton", 1)[0] for t in skipped}
+    missing = want - set(got) - bare
+    check(not missing, f"{what}: missing {sorted(missing)}")
+
+
+def _train_events(cfg: dict, tb_dir: str, trainer, steps: int) -> dict:
+    """The train CLI's events: one file, one file_version record; at every
+    step the flagship losses, the total, smpl_disc and the learning rate
+    (equal to the trainer's own history); at step 0 and only there, every
+    panel of tb_vis, written or counted as skipped."""
+    from x_as_supervision_tpu_torch.checks import events_in
+
+    files = events_in(tb_dir)
+    check(len(files) == 1, f"train CLI: event files {sorted(files)}")
+    (events,) = files.values()
+    check(sum(e["file_version"] is not None for e in events) == 1
+          and events[0]["file_version"] == "brain.Event:2",
+          "train CLI: not one file_version record first")
+    scalars: dict = {}
+    images: dict = {}
+    for e in events:
+        scalars.setdefault(e["step"], {}).update(e["scalars"])
+        images.setdefault(e["step"], {}).update(e["images"])
+    want = {f"training_loss/{k}" for k in FLAGSHIP_LOSSES} | {
+        "training_loss/total_loss", "training_loss/smpl_disc",
+        "meta/learning_rate/detector"}
+    for step in range(steps):
+        got = scalars.get(step, {})
+        check(want <= set(got), f"train CLI: step {step} scalars "
+                                f"{sorted(got)}, missing "
+                                f"{sorted(want - set(got))}")
+        hist = trainer.history[step]
+        check(got["training_loss/total_loss"] == np.float32(
+            hist["loss_total"]), f"train CLI: step {step} total_loss")
+        check(all(np.isfinite(v) for v in got.values()),
+              f"train CLI: step {step} non-finite scalars")
+        check(not images.get(step) or step == 0,
+              f"train CLI: panels at step {step}")
+    cams = [f"cam_{c}" for c in cfg["dataset_params"]["cam_id_list"]]
+    panels = {"training_pose_3d/src_gt_pose_3d",
+              "training_depth/depth_map_cam_0"}
+    for c in cams:
+        panels |= {
+            f"training_img/{c}_img", f"training_mask/{c}_mask",
+            f"training_pose_2d/{c}_gt_pose",
+            f"training_weight/{c}_geodesic_dis",
+            f"training_mask/mask_heatmap_line_{c}",
+            f"training_mask/mask_physique_{c}",
+            f"training_pose_2d/pose_2d_pred_{c}_ori",
+            f"training_pose_3d/pose_3d_depth_{c}",
+            f"training_pseudo/pose_2d_pred_{c}_pseudo",
+            f"training_pseudo/pose_3d_pred_{c}_pseudo",
+            f"training_pseudo/pose_3d_gt_{c}_pseudo",
+            f"training_smpl/pose_smpl_2d_{c}",
+            f"training_smpl/pose_smpl_3d_{c}"}
+    skipped = dict(trainer.tb_logger.skipped)
+    _expect_all(images[0], skipped, panels, "train CLI step 0")
+    check(images[0][f"training_img/{cams[0]}_img"] == (PATCH, PATCH, 3),
+          f"train CLI: image size {images[0]}")
+    disc = {f"training_disc/{k}_logits_{c}" for c in cams
+            for k in ("pred", "smpl")}
+    check(disc <= set(scalars[0]), "train CLI: step 0 training_disc")
+    record = dict(steps=sorted(scalars), panels=sorted(images[0]),
+                  skipped=skipped, events=len(events))
+    emit(phase="train_events", **record)
+    return record
+
+
+def _eval_events(ev, mode: str) -> dict:
+    """An eval CLI's events: per batch (the step) the pose panels of
+    _log_batch_images, written or counted as skipped."""
+    from x_as_supervision_tpu_torch.checks import read_events
+
+    events = read_events(ev.tb_logger.path)
+    check(events[0]["file_version"] == "brain.Event:2",
+          f"eval {mode}: no file_version record first")
+    cams = [f"cam_{c}" for c in ev.cam_id_list]
+    want = {"testing_pose_3D/gt", "testing_pose_3D/pred_tri"}
+    for c in cams:
+        want |= {f"testing_pred_pose/{c}_pred_pose_v2",
+                 f"testing_gt_pose/{c}_gt_pose_v2",
+                 f"testing_pose_3D/pred_{c}"}
+    images: dict = {}
+    for e in events:
+        images.setdefault(e["step"], {}).update(e["images"])
+    skipped = dict(ev.tb_logger.skipped)
+    for b in range(ev.num_batches):
+        _expect_all(images.get(b, {}), skipped, want, f"eval {mode} batch {b}")
+    check(all(v % ev.num_batches == 0 for v in skipped.values()),
+          f"eval {mode}: skips {skipped}")
+    record = dict(panels_per_batch=len(images[0]), skipped=skipped)
+    emit(phase="eval_events", mode=mode, panels=sorted(images[0]), **record)
     return record
 
 
@@ -1140,7 +1352,6 @@ def phase_eval_parity() -> dict:
     """One fp32 eval of the train-parity config's detector on the card and
     on the CPU from one checkpoint saved on the card, on the anchored
     fixture (see the module docstring)."""
-    import os
     import tempfile
 
     import torch

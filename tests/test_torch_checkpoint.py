@@ -217,13 +217,14 @@ def test_train_then_eval_cli_end_to_end(tmp_path, capsys):
     path.write_text(json.dumps(cfg))
     log = tmp_path / "log"
     train = ["x_as_supervision_tpu_torch.train", "--config", str(path),
-             "--synthetic", "--device", "cpu", "--fp32", "--log_dir",
-             str(log)]
+             "--synthetic", "--seed", "0", "--device", "cpu", "--fp32",
+             "--log_dir", str(log)]
     res = _run(train, REPO)
     assert res.returncode == 0, res.stderr
     (run,) = os.listdir(log)
     assert run.startswith("tiny_seed0_")
-    assert sorted(os.listdir(log / run)) == ["00000_ckpt", "tiny.json"]
+    assert sorted(os.listdir(log / run)) == ["00000_ckpt", "tensorboard",
+                                             "tiny.json"]
     assert sum(ln.startswith("step ") for ln in res.stdout.splitlines()) == 4
 
     capsys.readouterr()

@@ -398,3 +398,53 @@ def test_triangulation_on_card_matches_cpu(dev):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1.0)
     torch.testing.assert_close(want[..., :3], torch.from_numpy(world).float(),
                                rtol=0, atol=1.0)
+
+
+def test_vis_step_on_card_writes_readable_events(dev, tmp_path):
+    """One step of the tiny flagship config on the card with a writer: a
+    vis step (outputs fetched in one copy, tb_vis's panels) whose events
+    read back with every CRC valid, under train_params.profile, whose
+    Chrome trace holds the step's CUDA kernels."""
+    import json
+    import os
+
+    from x_as_supervision_tpu_torch.checks import events_in
+    from x_as_supervision_tpu_torch.data.synthetic import (
+        SyntheticPoseDataset,
+    )
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+    from x_as_supervision_tpu_torch.train.logging import create_writer
+    from x_as_supervision_tpu_torch.train.trainer import Trainer
+
+    cfg = flagship_config(tiny=True)
+    cfg["train_params"].update(batch_size=2, num_epochs=1,
+                               profile={"start_step": 0, "num_steps": 0})
+    ds = SyntheticPoseDataset(num_samples=2, cam_id_list=(0, 1),
+                              patch_size=64)
+    trainer = Trainer(cfg, ds, seed=0, dtype=torch.bfloat16, device=dev,
+                      save_dir=str(tmp_path / "run"), num_workers=2)
+    writer = create_writer(str(tmp_path / "run" / "tensorboard"))
+    history = trainer.train(max_steps=1, log=lambda _: None,
+                            tb_logger=writer)
+    writer.close()
+    assert len(history) == 1 and np.isfinite(list(history[0].values())).all()
+    (events,) = events_in(str(tmp_path / "run" / "tensorboard")).values()
+    assert [e["file_version"] for e in events[:1]] == ["brain.Event:2"]
+    scalars = {t: v for e in events for t, v in e["scalars"].items()}
+    images = {t for e in events for t in e["images"]}
+    for k, v in history[0].items():
+        tag = {"loss_total": "training_loss/total_loss",
+               "loss_disc": "training_loss/smpl_disc"}.get(
+                   k, "training_loss/" + k.split("/", 1)[-1])
+        assert scalars[tag] == np.float32(v), tag
+    assert {"training_img/cam_0_img", "training_mask/cam_1_mask",
+            "training_mask/mask_physique_cam_0",
+            "training_pose_2d/pose_2d_pred_cam_1_ori"} <= images
+    figures = {"training_pose_3d/src_gt_pose_3d",
+               "training_depth/depth_map_cam_0"}
+    assert figures <= images | set(writer.skipped)
+    (trace,) = os.listdir(tmp_path / "run" / "profile")
+    with open(tmp_path / "run" / "profile" / trace) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    assert any("marginals_kernel" in k for k in kernels), kernels[:20]

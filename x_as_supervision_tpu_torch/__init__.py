@@ -3,15 +3,17 @@ for NVIDIA Hopper (H100).
 
 The JAX package beside it is the reference; this package imports nothing of
 it, nor JAX. What is ported so far is the serving path, the flagship fused
-GAN training step with its checkpoints, and the eval that scores them:
+GAN training step with its checkpoints, TensorBoard logging and the train
+CLI's flags, and the eval that scores them:
 
   serve.py    PoseEstimator: preprocess, batched detector forward, pixels,
               patch -> world lift
   infer.py    the inference CLI (python -m x_as_supervision_tpu_torch.infer)
   train/      GAN spec factory, train state and fused step, trainer and its
               CLI (python -m x_as_supervision_tpu_torch.train), checkpoints
-              and their restore modes, the evaluator, its metrics and
-              tables
+              and their restore modes, TensorBoard logging (the port's own
+              event writer, tb_vis and its panels, the step timer and
+              profiler), the evaluator, its metrics and tables
   eval/       the eval CLI (python -m x_as_supervision_tpu_torch.eval)
   models/     ResNet backbone + deconv head, integral detectors (eval and
               train), physique net, discriminator, composed GAN losses
@@ -19,10 +21,13 @@ GAN training step with its checkpoints, and the eval that scores them:
               link, small-channel conv3x3, renderer, geometry and the DLT
               triangulation, losses, and the ctypes bindings of the CUDA
               kernels in csrc/
-  data/       the synthetic multi-camera pose fixture
+  data/       the synthetic multi-camera pose fixture and the epoch-shuffled
+              thread-pool batch loader
   checks.py   helpers shared by the tests and chip_smoke.py (the anchored
-              eval fixture, eval_result.txt reader, state comparison)
-  weights.py  JAX variables -> state_dicts; seeded weights
+              eval fixture, eval_result.txt reader, state comparison,
+              TensorBoard event reader)
+  weights.py  JAX variables -> state_dicts; seeded weights; the ImageNet
+              backbone init
   config.py   YAML / JSON config loading
 """
 

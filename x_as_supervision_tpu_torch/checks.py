@@ -16,16 +16,23 @@ chip_smoke.py. Nothing here imports JAX.
       eval_result.txt as (key, number or None) per line.
   flat, bitwise_diffs
       leaf-by-leaf comparison of nested state dicts (checkpoints).
+  read_events, events_in
+      a reader of the port's TensorBoard event files that needs no
+      TensorBoard: every record's two CRCs checked; each event's step,
+      file_version, scalars and image sizes decoded.
 """
 
 from __future__ import annotations
 
+import os
+import struct
 import types
 
 import numpy as np
 import torch
 
 from .train.eval_utils import DEFAULT_SWITCH_LIST
+from .train.logging import masked_crc32c
 
 # the real detector's share of an anchored detection (normalized units)
 ANCHOR_SCALE = 0.01
@@ -129,3 +136,95 @@ def bitwise_diffs(got: dict, want: dict) -> list:
         elif g != w:
             bad.append(k)
     return bad
+
+
+def _varint(buf: bytes, i: int) -> tuple[int, int]:
+    n = shift = 0
+    while True:
+        byte = buf[i]
+        i += 1
+        n |= (byte & 0x7F) << shift
+        shift += 7
+        if not byte & 0x80:
+            return n, i
+
+
+def _fields(buf: bytes):
+    """(field number, wire type, value) of each field of a protobuf
+    message: an int for varints, bytes for the rest."""
+    i = 0
+    while i < len(buf):
+        key, i = _varint(buf, i)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value, i = _varint(buf, i)
+        elif wire in (1, 5):
+            size = 8 if wire == 1 else 4
+            value, i = buf[i:i + size], i + size
+        elif wire == 2:
+            size, i = _varint(buf, i)
+            value, i = buf[i:i + size], i + size
+        else:
+            raise ValueError(f"protobuf wire type {wire}")
+        yield field, wire, value
+
+
+def _image(buf: bytes) -> tuple:
+    """Image{height 1, width 2, colorspace 3, encoded_image_string 4} ->
+    (height, width, colorspace), checked against the PNG's header."""
+    f = {field: value for field, _, value in _fields(buf)}
+    png = f[4]
+    if png[:8] != b"\x89PNG\r\n\x1a\n" or png[12:16] != b"IHDR":
+        raise ValueError("image is not a PNG")
+    width, height = struct.unpack(">II", png[16:24])
+    if (height, width) != (f[1], f[2]):
+        raise ValueError(f"PNG is {height}x{width}, its Image {f[1]}x{f[2]}")
+    return f[1], f[2], f[3]
+
+
+def read_events(path: str) -> list[dict]:
+    """Every event of one event file, each record's length and data CRCs
+    checked (ValueError on a bad one): dicts of ``wall_time``, ``step``,
+    ``file_version`` (or None), ``scalars`` {tag: value} and ``images``
+    {tag: (height, width, colorspace)}."""
+    with open(path, "rb") as f:
+        data = f.read()
+    events, i = [], 0
+    while i < len(data):
+        header = data[i:i + 8]
+        (length,) = struct.unpack("<Q", header)
+        (crc,) = struct.unpack("<I", data[i + 8:i + 12])
+        if crc != masked_crc32c(header):
+            raise ValueError(f"{path}: bad length CRC at byte {i}")
+        body = data[i + 12:i + 12 + length]
+        (crc,) = struct.unpack("<I", data[i + 12 + length:i + 16 + length])
+        if len(body) != length or crc != masked_crc32c(body):
+            raise ValueError(f"{path}: bad data CRC at byte {i}")
+        i += 16 + length
+        event = dict(wall_time=None, step=0, file_version=None, scalars={},
+                     images={})
+        for field, _, value in _fields(body):
+            if field == 1:
+                (event["wall_time"],) = struct.unpack("<d", value)
+            elif field == 2:
+                event["step"] = value - (1 << 64) if value >> 63 else value
+            elif field == 3:
+                event["file_version"] = value.decode()
+            elif field == 5:
+                for sfield, _, sval in _fields(value):
+                    if sfield != 1:
+                        continue
+                    v = {vf: vv for vf, _, vv in _fields(sval)}
+                    tag = v[1].decode()
+                    if 2 in v:
+                        (event["scalars"][tag],) = struct.unpack("<f", v[2])
+                    if 4 in v:
+                        event["images"][tag] = _image(v[4])
+        events.append(event)
+    return events
+
+
+def events_in(log_dir: str) -> dict:
+    """read_events of every event file in `log_dir`, by file name."""
+    return {name: read_events(os.path.join(log_dir, name))
+            for name in sorted(os.listdir(log_dir)) if "tfevents" in name}

@@ -1,6 +1,7 @@
 """Config loading: the port's own copy of the JAX package's config.py (same
 schema: dataset_params / model_params / train_params, the same checks, and
-cam_id_list copied into model_params). A ``.json`` file is read with the
+cam_id_list copied into model_params; the CLIs' --batch_size and --epoch
+overrides). A ``.json`` file is read with the
 ``json`` module, anything else as YAML; ``yaml`` is imported on use, so the
 package imports, and reads JSON configs, on a machine without it."""
 
@@ -27,6 +28,18 @@ def load_config(path: str | Path) -> dict:
     cfg = copy.deepcopy(cfg)
     cfg["model_params"]["cam_id_list"] = cfg["dataset_params"]["cam_id_list"]
     _validate(cfg)
+    return cfg
+
+
+def apply_overrides(
+    cfg: dict, batch_size: int | None = None, epochs: int | None = None
+) -> dict:
+    """CLI overrides, mirroring reference train.py:325-328."""
+    cfg = copy.deepcopy(cfg)
+    if batch_size:
+        cfg["train_params"]["batch_size"] = batch_size
+    if epochs:
+        cfg["train_params"]["num_epochs"] = epochs
     return cfg
 
 

@@ -7,9 +7,13 @@ its statistics over all cameras. The pseudo-image stream has its own
 forward. The batch is a dict of tensors in the data pipeline's layout
 (images and masks (B, S, S, C), keypoints (B, K, 3)); the modules take NCHW.
 
-Left out of this slice: the visualization ``outputs`` (the trainer uses
-them only for image panels), the mono-camera path, ``use_aug`` rotation
-augmentation and the remat modes (the port keeps every activation).
+Given an ``outputs`` dict, both phases fill it with the JAX package's
+visualization outputs (the trainer's image panels): first sample only,
+detached slices of values the phase computes anyway, plus the world lifts
+of a few keypoints; no extra forward, and no loss, gradient or parameter
+changes. Left out of this slice: the mono-camera path, ``use_aug`` rotation
+augmentation (and so the ``_rot`` outputs) and the remat modes (the port
+keeps every activation).
 """
 
 from __future__ import annotations
@@ -135,10 +139,25 @@ def _disc(spec: GanSpec, poses, generator):
     return spec.discriminator(poses[..., : spec.disc_sup_dim], generator)
 
 
-def generator_forward(spec: GanSpec, batch: dict, generator=None):
+def _mono_world(kps):
+    """The reference's visualization-only world of normalized patch
+    keypoints (JAX: convert_patch_to_world(mono=True, patch=False))."""
+    return G.convert_patch_to_world(kps, None, None, None, None, None, 0, 0,
+                                    rect_width=256.0, mono=True, patch=False)
+
+
+def _first_nhwc(x, i: int, b: int):
+    """Camera i's first sample of a camera-major NCHW batch, as (1, H, W,
+    C): the JAX package's layout of the mask outputs."""
+    return x[i * b:i * b + 1].permute(0, 2, 3, 1).detach()
+
+
+def generator_forward(spec: GanSpec, batch: dict, generator=None,
+                      outputs: dict | None = None):
     """The generator-side loss menu, gated by the keys of loss_config as in
     the JAX package. Returns (losses {name: scalar}, the camera stream's
-    decode). The modules' train/eval modes are the caller's."""
+    decode); fills `outputs`, when given, with the visualization outputs.
+    The modules' train/eval modes are the caller's."""
     cams = _cams(spec, batch)
     nc = len(cams)
     cfg = spec.loss_config
@@ -155,12 +174,31 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None):
         kps_bh = kps_all[i].reshape(b * nh, *kps_all.shape[3:])
         world = _lift(kps_bh, batch, f"cam_{cam}", side, rep=nh)
         kps_world[cam] = world.reshape(b, nh, *world.shape[1:])
+    if outputs is not None:
+        for i, cam in enumerate(cams):
+            ck = f"cam_{cam}"
+            outputs[f"pose_2d_pred_{ck}_ori"] = kps_all[i, :1, 0].detach()
+            if i == 0:
+                outputs[f"depth_map_{ck}"] = decode.depth_prob_map.detach()
+            outputs[f"pose_3d_depth_{ck}"] = kps_world[cam][:1, 0].detach()
+        with torch.no_grad():
+            first = {k: v[:1] for k, v in batch.items()
+                     if k.startswith("cam_0_")}
+            outputs["kp_gt_world"] = G.convert_patch_to_world(
+                first["cam_0_joints"], first["cam_0_trans_image"],
+                first["cam_0_pelvis"], first["cam_0_k_mat"],
+                first["cam_0_trans_world"], first["cam_0_rot_world"],
+                image_width=side, image_height=side, is_norm=False)
 
     # one line render over all cameras, hypothesis 0's x, y
     kps2d = kps_all[:, :, 0, :, :2].reshape(nc * b, -1, 2)
     masks_all = G.draw_lines(kps2d, side, spec.render_parent_ids,
                              spec.render_child_ids, spec.body_width
                              ).amax(dim=1, keepdim=True)  # (CB, 1, S, S)
+    if outputs is not None:
+        for i, cam in enumerate(cams):
+            outputs[f"mask_heatmap_line_cam_{cam}"] = _first_nhwc(masks_all,
+                                                                  i, b)
 
     if "symmetry_loss" in cfg:
         w = cfg["symmetry_loss"]["weight"]
@@ -196,6 +234,13 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None):
         loss_pseudo = 0.0
         for i, cam in enumerate(cams):
             gt = batch[f"cam_{cam}_pseudo_joints"]
+            if outputs is not None:
+                ck = f"cam_{cam}"
+                with torch.no_grad():
+                    pred0 = pred_all[i, :1, 0].detach()
+                    outputs[f"pose_2d_pred_{ck}_pseudo"] = pred0
+                    outputs[f"pose_3d_pred_{ck}_pseudo"] = _mono_world(pred0)
+                    outputs[f"pose_3d_gt_{ck}_pseudo"] = _mono_world(gt[:1])
             per_hypo = torch.stack([L.compute_supervision(pred_all[i, :, h], gt)
                                     for h in range(nh)])
             loss_pseudo = loss_pseudo + torch.amin(per_hypo)
@@ -213,6 +258,10 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None):
 
     if "physique_recons_loss" in cfg and spec.physique is not None:
         phy_all = spec.physique(masks_all)
+        if outputs is not None:
+            for i, cam in enumerate(cams):
+                outputs[f"mask_physique_cam_{cam}"] = _first_nhwc(phy_all, i,
+                                                                  b)
         loss_phy = L.compute_mask_reconstruction_loss(
             phy_all, gt_masks, weight=dis_map("physique_recons_loss")) * nc
         losses["physique_recons"] = (loss_phy
@@ -234,11 +283,13 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None):
 
 
 def discriminator_forward(spec: GanSpec, batch: dict, generator=None,
-                          precomputed_decode=None):
+                          precomputed_decode=None,
+                          outputs: dict | None = None):
     """Discriminator-side LSGAN loss: real = the pseudo SMPL joints of the
     data stream, fake = the detector's predictions (no gradient). With
     ``precomputed_decode`` (the fused step) the generator phase's camera
-    forward is reused; else the detector runs once more without gradient."""
+    forward is reused; else the detector runs once more without gradient.
+    Fills `outputs`, when given, with the visualization outputs."""
     cams = _cams(spec, batch)
     nc = len(cams)
     decode = precomputed_decode
@@ -251,5 +302,18 @@ def discriminator_forward(spec: GanSpec, batch: dict, generator=None,
     pred_logits = _disc(spec, pred.reshape(cb * nh, *pred.shape[2:]),
                         generator).reshape(cb, nh, 1)
     smpl_logits = _disc(spec, smpl, generator)
+    if outputs is not None:
+        b = cb // nc
+        for i, cam in enumerate(cams):
+            ck = f"cam_{cam}"
+            outputs[f"pose_smpl_2d_{ck}"] = smpl[i * b:i * b + 1].detach()
+            outputs[f"smpl_logits_{ck}"] = smpl_logits[i * b:i * b + 1
+                                                       ].detach()
+            outputs[f"pred_logits_{ck}"] = pred_logits[i * b:i * b + 1, 0
+                                                       ].detach()
+        with torch.no_grad():
+            for cam in cams:
+                outputs[f"pose_smpl_3d_cam_{cam}"] = _mono_world(
+                    batch[f"cam_{cam}_pseudo_joints"][:1])
     loss = L.compute_disc_loss(pred_logits, smpl_logits) * nc
     return loss * spec.loss_config["smpl_disc_loss"]["weight"]

@@ -108,15 +108,26 @@ def convert_image_to_world(kps, fx, fy, u, v, trans, rot):
 def convert_patch_to_world(keypoints, trans_image, pelvis, k_mat,
                            trans_world, rot_world, image_width: int,
                            image_height: int, is_norm: bool = True,
-                           rect_width: float = 2000.0):
+                           rect_width: float = 2000.0, mono: bool = False,
+                           patch: bool = True):
     """Full patch -> world chain for one camera batch.
 
     The image side is passed explicitly (the JAX package reads it from the
-    shape of an image batch); depth uses the width, as there."""
-    kp_img = convert_patch_to_image(
-        keypoints, trans_image, image_width, image_height, image_width,
-        rect_width / image_width, pelvis, is_norm=is_norm,
-    )
+    shape of an image batch); depth uses the width, as there. ``patch``
+    False takes `keypoints` as image coordinates already; ``mono`` True
+    returns the reference's visualization-only fake world instead of the
+    camera back-projection: z + 128, the axes as (x, z, y), negated
+    (reference: modules/util.py:128-152)."""
+    if patch:
+        kp_img = convert_patch_to_image(
+            keypoints, trans_image, image_width, image_height, image_width,
+            rect_width / image_width, pelvis, is_norm=is_norm,
+        )
+    else:
+        kp_img = keypoints
+    if mono:
+        kp_world = torch.cat([kp_img[..., :2], kp_img[..., 2:] + 128.0], -1)
+        return -kp_world[..., [0, 2, 1]]
     return convert_image_to_world(
         kp_img, k_mat[..., 0, [0]], k_mat[..., 1, [1]], k_mat[..., 0, [2]],
         k_mat[..., 1, [2]], trans_world, rot_world,

@@ -13,8 +13,9 @@ Kept from the JAX package (and its reference, eval.py:65-298):
   * the MPI 'Tri3D' block divides pck / auc by the 3D count table;
   * eval_result.txt has the same lines, in the same order, with the same
     text.
-Left out: the per-process sharding of batches and the cross-host reduction
-(one process walks every batch) and the TensorBoard image panels.
+Given a writer, ``eval`` logs each batch's pose panels as the JAX package
+does (``_log_batch_images``). Left out: the per-process sharding of batches
+and the cross-host reduction (one process walks every batch).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from ..ops import geometry as G
 from ..serve import resolve_device
 from . import eval_utils as EU
 from . import metrics as MET
+from . import vis
+from .logging import figure, pose_panel
 
 # the per-camera batch fields the device step reads
 _CAM_FIELDS = ("img", "joints", "mask", "trans_image", "pelvis", "k_mat",
@@ -264,13 +267,23 @@ class Evaluator:
                 counts["pck"] += 1
                 counts["auc"] += 1
 
-    def eval(self, mode: str = "best"):
+    def eval(self, mode: str = "best", tb_log=None, tb_pair_ids=None,
+             tb_parent_ids=None):
         """Walks the batches; returns the tables (rec2d, cnt2d, rec3d, cnt3d,
-        rec3dt, cnt3dt, ambiguity) that record() writes."""
+        rec3dt, cnt3dt, ambiguity) that record() writes. With `tb_log`
+        each batch's panels go there, at the batch's index."""
         (rec2d, cnt2d, rec3d, cnt3d, rec3dt, cnt3dt) = _new_tables(
             self.cal_per_act
         )
         ambiguity = 0.0
+        if tb_pair_ids is None:
+            tb_pair_ids = np.array(
+                self.config["model_params"].get("flip_pairs", [])
+            )
+        if tb_parent_ids is None:
+            tb_parent_ids = np.array(
+                self.config["model_params"].get("parent_ids", [])
+            )
         timed = self.device.type == "cuda"
         self.step_ms = []
         t0 = time.perf_counter()
@@ -288,6 +301,11 @@ class Evaluator:
             out = fetch(out)
             if timed:
                 self.step_ms.append(ev0.elapsed_time(ev1))
+
+            if tb_log is not None:
+                self._log_batch_images(
+                    tb_log, b, batch, out, tb_pair_ids, tb_parent_ids
+                )
 
             # 2D error per camera (reference eval.py:161-166)
             for cam_id in self.cam_id_list:
@@ -322,6 +340,39 @@ class Evaluator:
         self.wall_s = time.perf_counter() - t0
         self._tables = (rec2d, cnt2d, rec3d, cnt3d, rec3dt, cnt3dt, ambiguity)
         return self._tables
+
+    def _log_batch_images(self, tb_log, step, batch, out, pair_ids,
+                          parent_ids):
+        """Per-batch pred/GT pose panels + 3D plots, first sample only
+        (reference: eval.py:152-158,178-199)."""
+        mean = self.config["dataset_params"].get("dataiter", {}).get("mean")
+        std = self.config["dataset_params"].get("dataiter", {}).get("std")
+        if np.asarray(batch[f"cam_{self.cam_id_list[0]}_img"]).dtype == \
+                np.uint8:
+            mean, std = None, None  # uint8 feed is already display-ready
+        gt_world = np.asarray(out["kps_world_gt"])
+        figure(tb_log, "testing_pose_3D/gt", step,
+               lambda: vis.pose_vis_3d(gt_world[0], pair_ids, parent_ids))
+        figure(tb_log, "testing_pose_3D/pred_tri", step,
+               lambda: vis.pose_vis_3d(np.asarray(out["tri"])[0], pair_ids,
+                                       parent_ids,
+                                       ref_keypoints=gt_world[0]))
+        for cam_id in self.cam_id_list:
+            ck = f"cam_{cam_id}"
+            img = np.asarray(batch[f"{ck}_img"][0])
+            pred2d = np.asarray(out["kp_pred_2d"][ck])[0]
+            gt2d = np.asarray(out["gts_2d"][ck])[0][:, :2]
+            size = img.shape[:2]
+            pose_panel(tb_log, f"testing_pred_pose/{ck}_pred_pose_v2", step,
+                       vis.pose_vis(pred2d, size, pair_ids, parent_ids,
+                                    img=img, mean=mean, std=std))
+            pose_panel(tb_log, f"testing_gt_pose/{ck}_gt_pose_v2", step,
+                       vis.pose_vis(gt2d, size, pair_ids, parent_ids,
+                                    img=img, mean=mean, std=std))
+            figure(tb_log, f"testing_pose_3D/pred_{ck}", step,
+                   lambda ck=ck: vis.pose_vis_3d(
+                       np.asarray(out["per_cam_world"][ck])[0], pair_ids,
+                       parent_ids, ref_keypoints=gt_world[0]))
 
     # ---------------- reporting ----------------
 

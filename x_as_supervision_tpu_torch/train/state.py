@@ -114,8 +114,8 @@ def _grads(loss, params):
                    params)
 
 
-def _gen_losses(state: TrainState, batch, generator):
-    losses, decode = generator_forward(state.spec, batch, generator)
+def _gen_losses(state: TrainState, batch, generator, outputs=None):
+    losses, decode = generator_forward(state.spec, batch, generator, outputs)
     total = sum(v.mean() for v in losses.values())
     grads = _grads(total, state.gen_params + state.disc_params)
     n = len(state.gen_params)
@@ -145,38 +145,48 @@ def _update_gen(state: TrainState, grads) -> None:
 
 def train_step(state: TrainState, batch: dict,
                generator: torch.Generator | None = None,
-               do_disc: bool = True, do_gen: bool = True) -> dict:
+               do_disc: bool = True, do_gen: bool = True,
+               with_outputs: bool = False):
     """One iteration on `batch` (tensors on the modules' device); returns
-    the scalar metrics (loss_total, loss/<name>, loss_disc) as tensors.
-    `generator` drives the discriminator header's dropout."""
+    the scalar metrics (loss_total, loss/<name>, loss_disc) as tensors, and
+    with `with_outputs` (metrics, outputs): the visualization outputs of
+    both phases (models/composed.py), the discriminator's first, as the
+    JAX package merges them. `generator` drives the discriminator header's
+    dropout."""
     spec = state.spec
     has_disc = spec.discriminator is not None
     batch = preprocess_batch(batch, spec)
     metrics: dict = {}
+    d_out = {} if with_outputs else None
+    g_out = {} if with_outputs else None
     if do_disc and do_gen and has_disc:
         # fused: generator gradients at the pre-update discriminator, then
         # the discriminator phase on the same camera forward
         total, losses, decode, g_gen, g_disc = _gen_losses(state, batch,
-                                                           generator)
+                                                           generator, g_out)
         loss_disc = discriminator_forward(spec, batch, generator,
-                                          precomputed_decode=decode)
+                                          precomputed_decode=decode,
+                                          outputs=d_out)
         _update_disc(state, _grads(loss_disc, state.disc_params))
         _update_gen(state, g_gen)
         state.pending_disc_grads = g_disc
         metrics = _metrics(total, losses, loss_disc)
     else:
         if do_disc and has_disc:
-            loss_disc = discriminator_forward(spec, batch, generator)
+            loss_disc = discriminator_forward(spec, batch, generator,
+                                              outputs=d_out)
             _update_disc(state, _grads(loss_disc, state.disc_params))
             state.pending_disc_grads = [torch.zeros_like(p)
                                         for p in state.disc_params]
             metrics["loss_disc"] = loss_disc.detach()
         if do_gen:
             total, losses, _, g_gen, g_disc = _gen_losses(state, batch,
-                                                          generator)
+                                                          generator, g_out)
             _update_gen(state, g_gen)
             state.pending_disc_grads = [
                 c + g for c, g in zip(state.pending_disc_grads, g_disc)]
             metrics.update(_metrics(total, losses))
     state.step += 1
+    if with_outputs:
+        return metrics, {**d_out, **g_out}
     return metrics

@@ -1,23 +1,28 @@
 """Training loop of the port (the JAX package's train/trainer.py, without
-its TensorBoard logging, thread loader and multi-host mesh): the run
-directory, seeded modules, the GAN update cadence, a per-step dropout
-generator, per-step losses, and a checkpoint every ``checkpoint_freq``
-epochs and at the last one, with resume and finetune from one.
+its multi-host mesh): the run directory, seeded modules (a seed of -1 taken
+from the clock), the ImageNet backbone initialization, the epoch-shuffled
+prefetching loader, the GAN update cadence, a per-step dropout generator,
+TensorBoard scalars every ``log_interval`` steps and image panels every
+``lcm(50, log_interval)``, the step timer, an optional profiler trace, and a
+checkpoint every ``checkpoint_freq`` epochs and at the last one, with
+resume and finetune from one.
 
     python -m x_as_supervision_tpu_torch.train --config <yaml|json> \\
-        --synthetic --seed 0 [--steps N] [--batch_size B] [--log_dir DIR] \\
+        --synthetic [--seed S] [--epoch N] [--steps N] [--batch_size B] \\
+        [--worker N] [--backbone_init FILE] [--log_dir DIR] \\
         [--checkpoint <ckpt_dir>|auto] [--finetune] [--extra_tag T] \\
         [--device cpu] [--fp32]
 
 It trains on the CUDA card unless given ``--device cpu``; there the kernels'
 plain versions run. A resumed run takes the same steps as one that was not
-interrupted: the data position follows from the epoch and the step, and
-each step's dropout generator from the seed and the step.
+interrupted: epoch e's batches follow from the seed and e, and each step's
+dropout generator from the seed and the step.
 """
 
 from __future__ import annotations
 
 import glob
+import math
 import os
 import time
 from shutil import copy as copy_file
@@ -26,9 +31,13 @@ import numpy as np
 import torch
 
 from .. import weights
+from ..data.loader import BatchLoader
 from ..serve import resolve_device
 from . import checkpoint as ckpt
+from .evaluator import fetch
 from .factory import build_gan_spec
+from .logging import tb_vis
+from .profiling import Profiler, StepTimer
 from .state import TrainState, train_step
 
 
@@ -88,31 +97,52 @@ class Trainer:
     def __init__(self, config: dict, dataset, seed: int = 0,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  save_dir: str | None = None,
-                 checkpoint_path: str | None = None, mode: str = "train"):
-        """save_dir: where checkpoints go (none saved without it);
-        checkpoint_path: a checkpoint to resume from (mode "train") or to
-        take the weights of (mode "finetune")."""
+                 checkpoint_path: str | None = None, mode: str = "train",
+                 num_workers: int = 10, backbone_init: str | None = None):
+        """save_dir: where checkpoints (and a profiler trace) go (none saved
+        without it); checkpoint_path: a checkpoint to resume from (mode
+        "train") or to take the weights of (mode "finetune"); seed -1: a
+        seed from the clock; num_workers: the loader's threads;
+        backbone_init: an ImageNet backbone file (else
+        detector_params.backbone_init, else data/pretrained/)."""
         if mode not in ("train", "finetune"):
             raise ValueError(f"mode {mode!r}: 'train' or 'finetune'")
         self.config = config
         self.save_dir = save_dir
         self.dataset = dataset
         self.device = resolve_device(device)
-        self.seed = seed
+        self.seed = seed if seed != -1 else int(time.time()) % (2**31)
         tp = config["train_params"]
         self.batch_size = tp["batch_size"]
-        self.steps_per_epoch = max(1, len(dataset) // self.batch_size)
         self.num_epochs = tp["num_epochs"]
         self.ckpt_freq = tp.get("checkpoint_freq", 1)
         self.disc_every, self.gen_every = update_intervals(config)
+        # scalars every log_interval steps (each log is one device-to-host
+        # fetch), image panels on the steps that are also log steps, every
+        # lcm(50, log_interval) (reference: train.py:196-199)
+        self.log_interval = int(tp.get("log_interval", 1))
+        self.vis_interval = math.lcm(50, self.log_interval)
 
         self.spec = build_gan_spec(config, dtype)
         for i, module in enumerate((self.spec.detector, self.spec.physique,
                                     self.spec.discriminator)):
             if module is not None:
-                weights.init_weights(module, seed + i)
+                weights.init_weights(module, self.seed + i)
+        det_p = config["model_params"].get("detector_params", {})
+        backbone_init = weights.resolve_backbone_init(
+            backbone_init or det_p.get("backbone_init"),
+            det_p.get("num_layers", 50))
+        if backbone_init:
+            weights.init_backbone(self.spec.detector, backbone_init)
+            print(f"backbone initialized from {backbone_init}")
+        for module in (self.spec.detector, self.spec.physique,
+                       self.spec.discriminator):
+            if module is not None:
                 module.to(self.device)
-        self.state = TrainState(self.spec, tp, self.steps_per_epoch,
+        # the optimizers' milestones in steps of the epochs the dataset
+        # holds, as the JAX trainer builds them
+        self.state = TrainState(self.spec, tp,
+                                max(1, len(dataset) // self.batch_size),
                                 self.disc_every, self.gen_every)
         self.images_per_step = self.batch_size * len(self.spec.cam_id_list)
         self.epochs_run = 0
@@ -124,37 +154,87 @@ class Trainer:
             self.epochs_run = self.state.epoch
             print(f"Resuming training from epoch {self.epochs_run}")
 
-    def train(self, max_steps: int | None = None, log=print) -> list[dict]:
-        """Runs the epochs (at most `max_steps` steps); returns each step's
-        metrics as floats."""
+        self.loader = BatchLoader(dataset, batch_size=self.batch_size,
+                                  shuffle=True, num_workers=num_workers,
+                                  prefetch=2, seed=self.seed)
+        self.steps_per_epoch = len(self.loader)
+        mp = config["model_params"]
+        self.tb_parent_ids = np.array(mp["parent_ids"])
+        self.tb_pair_ids = np.array(mp["flip_pairs"])
+        self.profiler = Profiler.from_config(config, save_dir)
+        self.timer = StepTimer()
+
+    def train(self, max_steps: int | None = None, log=print,
+              tb_logger=None) -> list[dict]:
+        """Runs the epochs (at most `max_steps` steps), writing TensorBoard
+        events to `tb_logger` when given; returns the metrics fetched on
+        each log step (every log_interval steps), as floats."""
         history = []
-        for epoch in range(self.epochs_run, self.num_epochs):
-            for it in range(self.steps_per_epoch):
-                step = epoch * self.steps_per_epoch + it
-                if max_steps is not None and step >= max_steps:
-                    return history
-                do_disc = (self.spec.discriminator is not None
-                           and step % self.disc_every == 0)
-                do_gen = step % self.gen_every == 0
-                if not (do_disc or do_gen):
-                    continue
-                batch = to_device(self.dataset.batch(
-                    it * self.batch_size, self.batch_size), self.device)
-                t0 = time.perf_counter()
-                metrics = train_step(
-                    self.state, batch,
-                    step_generator(self.seed, step, self.device),
-                    do_disc=do_disc, do_gen=do_gen)
-                metrics = {k: float(v) for k, v in sorted(metrics.items())}
-                seconds = time.perf_counter() - t0
-                history.append(metrics)
-                log(f"step {step} ({seconds:.3f} s, "
-                    f"{self.images_per_step / seconds:.1f} img/s) "
-                    + " ".join(f"{k}={v:.6f}" for k, v in metrics.items()))
-            self.state.epoch = epoch + 1
-            if self.save_dir is not None and (
-                    epoch % self.ckpt_freq == 0
-                    or epoch == self.num_epochs - 1):
-                path = ckpt.save_checkpoint(self.save_dir, epoch, self.state)
-                log(f"checkpoint saved: {path}")
+        last_t, last_step = time.perf_counter(), None
+        try:
+            for epoch in range(self.epochs_run, self.num_epochs):
+                for it, batch in enumerate(self.loader.epoch(epoch)):
+                    cur_step = epoch * self.steps_per_epoch + it
+                    if max_steps is not None and cur_step >= max_steps:
+                        return history
+                    do_disc = (self.spec.discriminator is not None
+                               and cur_step % self.disc_every == 0)
+                    do_gen = cur_step % self.gen_every == 0
+                    if not (do_disc or do_gen):
+                        continue
+
+                    self.profiler.maybe_start(cur_step)
+                    want_outputs = (tb_logger is not None
+                                    and cur_step % self.vis_interval == 0)
+                    result = train_step(
+                        self.state, to_device(batch, self.device),
+                        step_generator(self.seed, cur_step, self.device),
+                        do_disc=do_disc, do_gen=do_gen,
+                        with_outputs=want_outputs)
+                    metrics, outputs = result if want_outputs else (result,
+                                                                    {})
+                    self.profiler.maybe_stop(cur_step)
+                    self.timer.tick()
+                    if cur_step % 50 == 0:
+                        self.timer.log(tb_logger, cur_step,
+                                       self.images_per_step)
+                    if cur_step % self.log_interval:
+                        continue
+
+                    # one device-to-host fetch of every scalar metric
+                    keys = sorted(metrics)
+                    packed = torch.stack([metrics[k].float().mean()
+                                          for k in keys]).cpu().numpy()
+                    fetched = {k: float(v) for k, v in zip(keys, packed)}
+                    history.append(fetched)
+                    seconds = (time.perf_counter() - last_t) / (
+                        1 if last_step is None else cur_step - last_step)
+                    log(f"step {cur_step} ({seconds:.3f} s, "
+                        f"{self.images_per_step / seconds:.1f} img/s) "
+                        + " ".join(f"{k}={v:.6f}"
+                                   for k, v in fetched.items()))
+                    if tb_logger is not None:
+                        tb_vis(
+                            tb_logger, cur_step, self.tb_pair_ids,
+                            self.tb_parent_ids, fetched.get("loss_total"),
+                            {k.split("loss/", 1)[1]: v
+                             for k, v in fetched.items()
+                             if k.startswith("loss/")},
+                            fetched.get("loss_disc"),
+                            fetch(outputs) if outputs else {}, batch,
+                            self.config,
+                            # the schedule counts generator updates
+                            detector_lr=self.state.lr_det(
+                                cur_step // self.gen_every))
+                    # the next line's time leaves out this step's logging
+                    last_t, last_step = time.perf_counter(), cur_step
+                self.state.epoch = epoch + 1
+                if self.save_dir is not None and (
+                        epoch % self.ckpt_freq == 0
+                        or epoch == self.num_epochs - 1):
+                    path = ckpt.save_checkpoint(self.save_dir, epoch,
+                                                self.state)
+                    log(f"checkpoint saved: {path}")
+        finally:
+            self.profiler.close()
         return history

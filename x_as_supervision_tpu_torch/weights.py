@@ -1,6 +1,7 @@
 """Weights: the JAX package's variables -> the port's state_dicts (detector,
-physique net, discriminator), seeded random weights, and conditioning of
-random detector weights for a stable eval forward.
+physique net, discriminator), seeded random weights, conditioning of
+random detector weights for a stable eval forward, and the ImageNet
+backbone initialization (resolve_backbone_init, init_backbone).
 
 The JAX detector's variables are ``{'params': ..., 'batch_stats': ...}``
 trees under ``net/backbone`` (``Conv_0``, ``_BN_0``, ``Bottleneck_i`` or
@@ -26,6 +27,8 @@ and ``header.dense{0,1}``.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -71,7 +74,23 @@ def state_dict_from_variables(variables: dict) -> dict:
     detector state_dict (``net.backbone.*``, ``net.head.*``)."""
     params = variables["params"]["net"]
     stats = variables["batch_stats"]["net"]
-    bp, bs = params["backbone"], stats["backbone"]
+    sd = _backbone_state_dict(params["backbone"], stats["backbone"])
+    hp, hs = params["head"], stats["head"]
+    layer = 0
+    while f"ConvTranspose_{layer}" in hp:
+        sd[f"net.head.features.{3 * layer}.weight"] = _conv_transpose(
+            hp[f"ConvTranspose_{layer}"]["kernel"])
+        _bn(sd, f"net.head.features.{3 * layer + 1}", hp[f"_BN_{layer}"],
+            hs[f"_BN_{layer}"])
+        layer += 1
+    sd[f"net.head.features.{3 * layer}.weight"] = _conv(hp["Conv_0"]["kernel"])
+    sd[f"net.head.features.{3 * layer}.bias"] = _t(hp["Conv_0"]["bias"])
+    return sd
+
+
+def _backbone_state_dict(bp: dict, bs: dict) -> dict:
+    """A JAX ResNetBackbone's params and batch_stats -> ``net.backbone.*``
+    entries of the port's detector state_dict."""
     kind, counts = RESNET_SPEC[_depth(bp)]
     sd: dict = {"net.backbone.conv1.weight": _conv(bp["Conv_0"]["kernel"])}
     _bn(sd, "net.backbone.bn1", bp["_BN_0"], bs["_BN_0"])
@@ -93,17 +112,6 @@ def state_dict_from_variables(variables: dict) -> dict:
                 _bn(sd, f"{pre}.downsample.1", bp[mod][f"_BN_{n_convs}"],
                     bs[mod][f"_BN_{n_convs}"])
             flax_block += 1
-
-    hp, hs = params["head"], stats["head"]
-    layer = 0
-    while f"ConvTranspose_{layer}" in hp:
-        sd[f"net.head.features.{3 * layer}.weight"] = _conv_transpose(
-            hp[f"ConvTranspose_{layer}"]["kernel"])
-        _bn(sd, f"net.head.features.{3 * layer + 1}", hp[f"_BN_{layer}"],
-            hs[f"_BN_{layer}"])
-        layer += 1
-    sd[f"net.head.features.{3 * layer}.weight"] = _conv(hp["Conv_0"]["kernel"])
-    sd[f"net.head.features.{3 * layer}.bias"] = _t(hp["Conv_0"]["bias"])
     return sd
 
 
@@ -155,8 +163,9 @@ def discriminator_state_dict(params: dict) -> dict:
     return sd
 
 
-def load_npz(path: str) -> dict:
-    """A flat ``.npz`` of detector variables -> the port's state_dict."""
+def _load_npz_tree(path: str) -> dict:
+    """A flat ``.npz`` whose keys are ``/``-separated paths -> nested
+    dicts of arrays."""
     variables: dict = {}
     with np.load(path) as data:
         for key in data.files:
@@ -165,7 +174,83 @@ def load_npz(path: str) -> dict:
             for part in parents:
                 node = node.setdefault(part, {})
             node[leaf] = data[key]
-    return state_dict_from_variables(variables)
+    return variables
+
+
+def load_npz(path: str) -> dict:
+    """A flat ``.npz`` of detector variables -> the port's state_dict."""
+    return state_dict_from_variables(_load_npz_tree(path))
+
+
+DEFAULT_PRETRAINED_DIR = "data/pretrained"
+
+
+def resolve_backbone_init(spec: str | None, depth: int) -> str | None:
+    """The file an ImageNet backbone initialization reads, as the JAX
+    package's tools/convert_torch_resnet.py:resolve_backbone_init finds it
+    (the reference loads the torchvision model zoo at construction,
+    network.py:46-54; nothing is fetched here):
+
+      * ``None``: ``data/pretrained/resnet<depth>_imagenet.npz``, else a
+        ``.pth`` or ``.pt`` of that name, else None (fresh weights);
+      * ``*.npz``: the JAX package's converted backbone, used as-is;
+      * ``*.pth`` / ``*.pt`` / ``*.pth.tar``: a torchvision checkpoint,
+        whose names are the port's, so it loads without a conversion.
+
+    A named file that does not exist is an error."""
+    if spec is None:
+        base = os.path.join(DEFAULT_PRETRAINED_DIR,
+                            f"resnet{depth}_imagenet")
+        for ext in (".npz", ".pth", ".pt"):
+            if os.path.isfile(base + ext):
+                return base + ext
+        return None
+    if spec.endswith(".npz"):
+        if not os.path.isfile(spec):
+            raise FileNotFoundError(
+                f"backbone_init npz not found: {spec} — convert a "
+                "torchvision checkpoint with tools/convert_torch_resnet "
+                "or pass the .pth directly for auto-conversion"
+            )
+        return spec
+    if spec.endswith((".pth", ".pt", ".pth.tar")):
+        if not os.path.isfile(spec):
+            raise FileNotFoundError(
+                f"backbone_init torch checkpoint not found: {spec}"
+            )
+        return spec
+    raise ValueError(
+        f"backbone_init must be a .npz or torch .pth/.pt checkpoint, "
+        f"got: {spec}"
+    )
+
+
+def backbone_state_dict(path: str) -> dict:
+    """The ``net.backbone.*`` entries of the port's detector state_dict in
+    a backbone file: a JAX npz (``params/...``, ``batch_stats/...`` of a
+    ResNetBackbone) or a torchvision state_dict (its ``fc`` and
+    ``num_batches_tracked`` entries dropped)."""
+    if path.endswith(".npz"):
+        tree = _load_npz_tree(path)
+        sd = _backbone_state_dict(tree["params"], tree["batch_stats"])
+    else:
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        sd = {"net.backbone." + k: v.float() for k, v in raw.items()
+              if not k.startswith("fc.")}
+    return {k: v for k, v in sd.items() if "num_batches_tracked" not in k}
+
+
+def init_backbone(detector: nn.Module, path: str) -> None:
+    """Loads the backbone of `path` (backbone_state_dict) into `detector`;
+    every entry must name one of its tensors, at its shape."""
+    sd = backbone_state_dict(path)
+    own = detector.state_dict()
+    bad = [k for k, v in sd.items()
+           if k not in own or own[k].shape != v.shape]
+    if bad:
+        raise ValueError(f"backbone_init {path}: entries that match no "
+                         f"tensor of the detector: {bad[:8]}")
+    detector.load_state_dict(sd, strict=False)
 
 
 def init_weights(module: nn.Module, seed: int) -> None:
