@@ -4,7 +4,8 @@ NVIDIA card: builds the port's kernels, holds each against its plain PyTorch
 version at the shapes the serving and training paths give it, drives the
 serving path once, takes a few steps of the flagship fused GAN training
 step, and trains, checkpoints and evaluates the flagship config through the
-port's train and eval CLIs.
+port's train and eval CLIs, on the synthetic fixture and on a dataset read
+from disk.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -72,7 +73,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    raw hypotheses and the normalized outputs within 1e-3, the swap masks
    and hypothesis choices equal or tied (the CPU's two candidate errors
    within 1e-4 relative), the triangulation within 0.25 mm per joint,
-   eval_result.txt within 1e-4 relative.
+   eval_result.txt within 1e-4 relative;
+10. real_data: the datasets from disk, without --synthetic. A miniature
+   Human3.6M in its own layout (x_as_supervision_tpu_torch/checks.py: 4
+   cameras of 1000^2 JPEGs, H36M's frame size, 64 frames of
+   s_09_act_02_subact_01 with their SAM masks) and a SURREAL pseudo stream
+   of 128 256^2 images, under HM36_Multi_SurS2's dataset_params (the
+   ``mini`` image set) and its augmentation (all zero), on the flagship
+   config: the index built cold and again from its pickle cache; the train
+   CLI for one epoch (64 frames padded by a batch: 96 samples, 3 steps),
+   once with the fp32 feed and once with uint8_feed (as the Campaign_XL_*
+   configs set it), each with the launches per step of phase 6 by kernel
+   and by path, CUDA events around each step, the time each step waits on
+   the loader's queue and the time the loader took to make each batch;
+   the fp32 run's 00000_ckpt restored bitwise; the loader alone in steady
+   state (a warm-up epoch, then 9 batches drained as they come, on the
+   train CLI's 10 threads), its ms per batch beside the step's, per feed;
+   the eval CLI in both modes with the launches per batch of phase 8 and
+   every sample in the act_02 bucket; one batch's host-to-device copy as
+   fp32 and as uint8, and the uint8 batch normalized on the card equal to
+   the fp32 one; one sample's geodesic maps from the port's own FMM build
+   (build/host/). It fails without cv2 or when the FMM does not build.
 
 Earlier lines carry the findings as JSON; the line before the last lists the
 kernels (launches per training step, per serving forward and per eval
@@ -140,6 +161,19 @@ FLAGSHIP_LOSSES = ("physique_recons", "reconstruction", "smpl_gen",
 # eval parity: samples, batch
 PARITY_SAMPLES = 8
 PARITY_BATCH = 2
+# real data: the on-disk H36M fixture (4 cameras of H36M's 1000^2 frames,
+# one sequence of the `mini` policy) and its SURREAL pseudo stream (256^2)
+REAL_IMG = 1000
+REAL_FRAMES = 64
+REAL_PSEUDO = 128
+# host-to-device copies of one real batch timed per feed
+H2D_REPEATS = 5
+# the loader alone: one warm-up epoch, then this many epochs of 3 batches
+# (at least its prefetch depth + 5 batches), on the train CLI's threads
+LOADER_EPOCHS = 3
+LOADER_WORKERS = 10
+# the real-data feeds: fp32 images from the host, or uint8_feed
+FEEDS = ("fp32", "uint8")
 
 KERNELS = {
     "integral_marginals": dict(
@@ -1080,11 +1114,105 @@ def phase_train_parity() -> dict:
 
 
 def _reset_counts() -> None:
-    for fn in _counters().values():
+    """Every launch count to 0, by kernel and by path."""
+    for name, fn in _counters().items():
         fn.launches = 0
+        for attr in TRAIN_PATH_LAUNCHES.get(name, ()):
+            setattr(fn, attr, 0)
+
+
+def _check_train_launches(steps: int, what: str) -> tuple[dict, dict]:
+    """The launches since _reset_counts, checked against TRAIN_LAUNCHES and
+    TRAIN_PATH_LAUNCHES per step over `steps` steps; returns them per step,
+    by kernel and by path."""
+    counters = _counters()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, per_step in TRAIN_LAUNCHES.items():
+        check(launches[name] == per_step * steps,
+              f"{what}: {name} launched {launches[name]} times in {steps} "
+              f"steps, expected {per_step} per step")
+    paths = {}
+    for name, attrs in TRAIN_PATH_LAUNCHES.items():
+        paths[name] = {}
+        for attr, per_step in attrs.items():
+            got = getattr(counters[name], attr)
+            check(got == per_step * steps,
+                  f"{what}: {name}.{attr} = {got} in {steps} steps, "
+                  f"expected {per_step} per step")
+            paths[name][attr] = got / steps
+    return {k: v / steps for k, v in launches.items()}, paths
+
+
+def _check_restore(cfg: dict, path: str, trainer) -> int:
+    """restore_resume of the checkpoint at `path` into a fresh state: every
+    tensor and count bitwise equal to the file and to the trainer's state.
+    Returns the number of tensors."""
+    import torch
+
+    from x_as_supervision_tpu_torch.checks import bitwise_diffs, flat
+    from x_as_supervision_tpu_torch.train import checkpoint as ckpt
+
+    _, fresh = _gan(cfg, torch.bfloat16, "cuda", SEED + 7)
+    ckpt.restore_resume(path, fresh)
+    restored = flat(ckpt.state_dict(fresh))
+    saved = flat(ckpt.load_raw(path, "cuda"))
+    live = flat(ckpt.state_dict(trainer.state))
+    bad = bitwise_diffs(restored, saved) + bitwise_diffs(restored, live)
+    check(not bad, f"restore_resume: differs from the saved state at "
+                   f"{bad[:8]}")
+    n_tensors = sum(torch.is_tensor(v) for v in restored.values())
+    del fresh, restored, saved, live
+    torch.cuda.empty_cache()
+    return n_tensors
+
+
+def _eval_cli(cfg_path: str, path: str, mode: str, synthetic: bool):
+    """The eval CLI on the checkpoint at `path` in `mode`, its launches per
+    batch checked (counts set to 0 just before it and read just after), its
+    panels and eval_result.txt read back; returns the Evaluator and the
+    mode's record."""
+    import torch
+
+    from x_as_supervision_tpu_torch.checks import result_lines
+    from x_as_supervision_tpu_torch.eval.__main__ import main as eval_main
     from x_as_supervision_tpu_torch.ops.conv_bn import fused_bn_relu_conv
 
-    fused_bn_relu_conv.launches_wgmma = 0
+    counters = _counters()
+    _reset_counts()
+    ev = eval_main(["--config", cfg_path, "--checkpoint", path,
+                    "--multi_hypo", mode]
+                   + (["--synthetic"] if synthetic else []))
+    torch.cuda.synchronize()
+    nb = ev.num_batches
+    launches = {name: fn.launches for name, fn in counters.items()}
+    wgmma = fused_bn_relu_conv.launches_wgmma
+    for name, per_batch in EVAL_LAUNCHES.items():
+        check(launches[name] == per_batch * nb,
+              f"eval {mode}: {name} launched {launches[name]} times "
+              f"in {nb} batches, expected {per_batch} per batch")
+    check(wgmma == EVAL_LAUNCHES["conv_bn_link"] * nb,
+          f"eval {mode}: {wgmma} links on wgmma of {launches}")
+    eval_events = _eval_events(ev, mode)
+    lines = result_lines(ev.result_path)
+    check(len(lines) == 15 and all(
+        v is None or np.isfinite(v) for _, v in lines),
+        f"eval {mode}: eval_result.txt {lines}")
+    images = nb * ev.batch_size * len(ev.cam_id_list)
+    step_s = sum(ev.step_ms) / 1e3
+    steady = ev.step_ms[1:]
+    return ev, dict(
+        batches=nb, images=images, step_ms=ev.step_ms,
+        img_per_s=images / step_s,
+        steady_img_per_s=(len(steady) * images / nb
+                          / (sum(steady) / 1e3)),
+        wall_s=ev.wall_s, host_share=1.0 - step_s / ev.wall_s,
+        launches_per_batch={k: v / nb for k, v in launches.items()},
+        wgmma_per_batch=wgmma / nb,
+        panels_per_batch=eval_events["panels_per_batch"],
+        panels_skipped=eval_events["skipped"],
+        ambiguity_ratio=ev.last_ambiguity_ratio,
+        eval_result=[f"{k}: {v}" if v is not None else k
+                     for k, v in lines])
 
 
 def phase_train_eval() -> dict:
@@ -1095,16 +1223,11 @@ def phase_train_eval() -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from x_as_supervision_tpu_torch.checks import (bitwise_diffs, flat,
-                                                   result_lines)
-    from x_as_supervision_tpu_torch.eval.__main__ import main as eval_main
     from x_as_supervision_tpu_torch.ops import geometry as G
-    from x_as_supervision_tpu_torch.ops.conv_bn import fused_bn_relu_conv
     from x_as_supervision_tpu_torch.train import checkpoint as ckpt
     from x_as_supervision_tpu_torch.train.__main__ import main as train_main
     from x_as_supervision_tpu_torch.train.factory import flagship_config
 
-    counters = _counters()
     with tempfile.TemporaryDirectory() as root:
         cfg = flagship_config()
         cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
@@ -1121,15 +1244,7 @@ def phase_train_eval() -> dict:
         steps = TRAIN_IMAGES // TRAIN_BATCH
         check(trainer.state.step == steps,
               f"train CLI: {trainer.state.step} steps, expected {steps}")
-        train_launches = {name: fn.launches for name, fn in counters.items()}
-        for name, per_step in TRAIN_LAUNCHES.items():
-            check(train_launches[name] == per_step * steps,
-                  f"train CLI: {name} launched {train_launches[name]} times "
-                  f"in {steps} steps, expected {per_step} per step")
-        check(fused_bn_relu_conv.launches_wgmma
-              == TRAIN_LAUNCHES["conv_bn_link"] * steps,
-              f"train CLI: {fused_bn_relu_conv.launches_wgmma} links on "
-              f"wgmma of {train_launches}")
+        train_launches, _ = _check_train_launches(steps, "train CLI")
         (run,) = os.listdir(log_dir)
         path = os.path.join(log_dir, run, "00000_ckpt")
         check(sorted(os.listdir(os.path.join(log_dir, run)))
@@ -1139,56 +1254,13 @@ def phase_train_eval() -> dict:
             cfg, os.path.join(log_dir, run, "tensorboard"), trainer, steps)
         ckpt_mb = os.path.getsize(os.path.join(path, ckpt.STATE_FILE)) / 1e6
 
-        # restore into a fresh state: every tensor and count bitwise equal
-        # to the file and to the state that was saved
-        _, fresh = _gan(cfg, torch.bfloat16, "cuda", SEED + 7)
-        ckpt.restore_resume(path, fresh)
-        restored = flat(ckpt.state_dict(fresh))
-        saved = flat(ckpt.load_raw(path, "cuda"))
-        live = flat(ckpt.state_dict(trainer.state))
-        bad = bitwise_diffs(restored, saved) + bitwise_diffs(restored, live)
-        check(not bad, f"restore_resume: differs from the saved state at "
-                       f"{bad[:8]}")
-        n_tensors = sum(torch.is_tensor(v) for v in restored.values())
-        del trainer, fresh, restored, saved, live
+        n_tensors = _check_restore(cfg, path, trainer)
+        del trainer
         torch.cuda.empty_cache()
 
         modes = {}
         for mode in EVAL_MODES:
-            _reset_counts()
-            ev = eval_main(["--config", cfg_path, "--checkpoint", path,
-                            "--synthetic", "--multi_hypo", mode])
-            torch.cuda.synchronize()
-            nb = ev.num_batches
-            launches = {name: fn.launches for name, fn in counters.items()}
-            wgmma = fused_bn_relu_conv.launches_wgmma
-            for name, per_batch in EVAL_LAUNCHES.items():
-                check(launches[name] == per_batch * nb,
-                      f"eval {mode}: {name} launched {launches[name]} times "
-                      f"in {nb} batches, expected {per_batch} per batch")
-            check(wgmma == EVAL_LAUNCHES["conv_bn_link"] * nb,
-                  f"eval {mode}: {wgmma} links on wgmma of {launches}")
-            eval_events = _eval_events(ev, mode)
-            lines = result_lines(ev.result_path)
-            check(len(lines) == 15 and all(
-                v is None or np.isfinite(v) for _, v in lines),
-                f"eval {mode}: eval_result.txt {lines}")
-            images = nb * ev.batch_size * len(ev.cam_id_list)
-            step_s = sum(ev.step_ms) / 1e3
-            steady = ev.step_ms[1:]
-            modes[mode] = dict(
-                batches=nb, images=images, step_ms=ev.step_ms,
-                img_per_s=images / step_s,
-                steady_img_per_s=(len(steady) * images / nb
-                                  / (sum(steady) / 1e3)),
-                wall_s=ev.wall_s, host_share=1.0 - step_s / ev.wall_s,
-                launches_per_batch={k: v / nb for k, v in launches.items()},
-                wgmma_per_batch=wgmma / nb,
-                panels_per_batch=eval_events["panels_per_batch"],
-                panels_skipped=eval_events["skipped"],
-                ambiguity_ratio=ev.last_ambiguity_ratio,
-                eval_result=[f"{k}: {v}" if v is not None else k
-                             for k, v in lines])
+            ev, modes[mode] = _eval_cli(cfg_path, path, mode, synthetic=True)
 
         # the triangulation of one batch, on the card
         batch = ev.to_device(ev.dataset.batch(0, ev.batch_size))
@@ -1215,13 +1287,263 @@ def phase_train_eval() -> dict:
         torch.cuda.empty_cache()
     record = dict(phase="train_eval", config="flagship, num_epochs 1, "
                   "checkpoint_freq 1 (JSON)", train_cli_s=train_s,
-                  train_launches_per_step={k: v / steps for k, v in
-                                           train_launches.items()},
+                  train_launches_per_step=train_launches,
                   train_events=train_events,
                   checkpoint_mb=ckpt_mb, restored_tensors=n_tensors,
                   triangulation_ms=tri_ms, modes=modes)
     emit(**record)
     return record
+
+
+def phase_real_data(card: str) -> dict:
+    """The flagship config on the on-disk H36M fixture, without --synthetic:
+    train CLI -> 00000_ckpt -> eval CLI in both modes, the loader's wait
+    and the host-to-device copy per batch, the uint8 feed on the card, and
+    one sample's geodesic maps from the port's FMM build (see the module
+    docstring). `card`: nvidia-smi's name and power limit, for the record."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from x_as_supervision_tpu_torch import checks
+    from x_as_supervision_tpu_torch.data import geodesic
+    from x_as_supervision_tpu_torch.data.factory import basic_data
+    from x_as_supervision_tpu_torch.data.hm36 import hm36
+    from x_as_supervision_tpu_torch.models.composed import preprocess_batch
+    from x_as_supervision_tpu_torch.ops import _build
+    from x_as_supervision_tpu_torch.train import trainer as trainer_mod
+    from x_as_supervision_tpu_torch.train.factory import (build_gan_spec,
+                                                          flagship_config)
+
+    try:
+        import cv2
+    except ImportError:
+        raise SmokeFailure("real_data: cv2 is not installed; the real "
+                           "datasets read their images with it") from None
+
+    with tempfile.TemporaryDirectory(prefix="xas_real_") as root:
+        t0 = time.perf_counter()
+        checks.write_mini_h36m(root, img_size=REAL_IMG, n_frames=REAL_FRAMES,
+                               seed=SEED)
+        checks.write_surreal_pseudo(
+            os.path.join(root, "surreal_h36m_pose"), REAL_PSEUDO,
+            seed=SEED + 1, size=PATCH)
+        fixture_s = time.perf_counter() - t0
+
+        cfg = flagship_config()
+        cfg["dataset_params"] = checks.hm36_dataset_params(root)
+        cfg["train_params"].update(num_epochs=1, checkpoint_freq=1,
+                                   aug=dict(checks.NO_AUG))
+        cfgs = {}
+        for feed in FEEDS:
+            cfgs[feed] = copy.deepcopy(cfg)
+            cfgs[feed]["dataset_params"]["uint8_feed"] = feed == "uint8"
+
+        # the index: parsed meta files, then its pickle cache
+        index = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            db = hm36("mini", cfg["dataset_params"]["dataset"]["path"],
+                      PATCH, PATCH, 2000, 2000, "").gt_db()
+            index.append(time.perf_counter() - t0)
+            check(len(db) == REAL_FRAMES,
+                  f"real_data: index of {len(db)} frames")
+
+        # the train CLI, with the fp32 feed and with uint8_feed (as the
+        # Campaign_XL_* configs set it)
+        runs, cfg_paths = {}, {}
+        for feed in FEEDS:
+            cfg_paths[feed] = os.path.join(root, f"flagship_real_{feed}.json")
+            with open(cfg_paths[feed], "w") as f:
+                json.dump(cfgs[feed], f)
+            log_dir = os.path.join(root, f"log_{feed}")
+            _reset_counts()
+            trainer, run = _timed_train_cli(cfg_paths[feed], log_dir)
+            what = f"real_data train CLI ({feed} feed)"
+            dataset = trainer.dataset
+            steps = len(dataset) // TRAIN_BATCH
+            check(type(dataset).__name__ == "hm36_Dataset" and steps == 3
+                  and dataset.uint8_feed == (feed == "uint8"),
+                  f"{what}: {type(dataset).__name__} of {len(dataset)} "
+                  f"samples, {steps} steps, uint8_feed "
+                  f"{dataset.uint8_feed}")
+            check(trainer.state.step == steps,
+                  f"{what}: {trainer.state.step} steps, expected {steps}")
+            run["launches_per_step"], run["path_launches_per_step"] = \
+                _check_train_launches(steps, what)
+            check(len(run["loader_wait_ms"]) == len(run["step_ms"]) == steps
+                  == len(trainer.loader.batch_seconds),
+                  f"{what}: {len(run['loader_wait_ms'])} waits, "
+                  f"{len(run['step_ms'])} steps timed, "
+                  f"{len(trainer.loader.batch_seconds)} batches made")
+            run["batch_made_ms"] = [t * 1e3
+                                    for t in trainer.loader.batch_seconds]
+            run["losses"] = trainer.history
+            if feed == "fp32":
+                (name,) = os.listdir(log_dir)
+                path = os.path.join(log_dir, name, "00000_ckpt")
+                run["restored_tensors"] = _check_restore(cfgs[feed], path,
+                                                         trainer)
+            runs[feed] = run
+            del trainer
+            torch.cuda.empty_cache()
+
+        # the loader alone, after a warm-up epoch: how long it takes to make
+        # a batch in steady state, beside the step it has to keep up with
+        loader, datasets = {}, {}
+        for feed in FEEDS:
+            datasets[feed] = basic_data(cfgs[feed])
+            made = _loader_batch_ms(datasets[feed])
+            steady_step = runs[feed]["step_ms"][1:]
+            loader[feed] = dict(
+                batch_ms=made, mean_batch_ms=float(np.mean(made)),
+                mean_step_ms=float(np.mean(steady_step)),
+                sets_the_pace=bool(np.mean(made) > np.mean(steady_step)))
+
+        modes = {}
+        for mode in EVAL_MODES:
+            ev, modes[mode] = _eval_cli(cfg_paths["fp32"], path, mode,
+                                        synthetic=False)
+            check(type(ev.dataset).__name__ == "hm36_Dataset"
+                  and not ev.dataset.is_train,
+                  f"real_data eval: {type(ev.dataset).__name__}")
+            # every frame is s_09_act_02: the act_02 (Directions) bucket
+            # holds every sample, the other actions none
+            cnt2d = ev.tables[1]
+            want = modes[mode]["images"]
+            check(cnt2d["Directions"] == want
+                  and sum(cnt2d.values()) == want
+                  and np.isfinite(ev.tables[0]["Directions"]),
+                  f"real_data eval {mode}: act table {cnt2d}")
+            modes[mode]["act_02_2d_mse"] = ev.tables[0]["Directions"]
+            del ev
+
+        # one batch's host-to-device copy, fp32 and uint8 feed (pageable,
+        # as trainer.to_device copies)
+        feeds = {feed: datasets[feed].batch(0, TRAIN_BATCH)
+                 for feed in FEEDS}
+        h2d = {}
+        for name, batch in feeds.items():
+            times = []
+            for _ in range(H2D_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dev = trainer_mod.to_device(batch, "cuda")
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            h2d[name] = dict(
+                ms=times, mb=sum(v.numel() * v.element_size()
+                                 for v in dev.values()) / 1e6)
+        # the uint8 feed normalized on the card equals the fp32 feed
+        spec = build_gan_spec(cfgs["uint8"])
+        fp32 = trainer_mod.to_device(feeds["fp32"], "cuda")
+        pre = preprocess_batch(trainer_mod.to_device(feeds["uint8"], "cuda"),
+                               spec)
+        check(pre.keys() == fp32.keys(), "real_data uint8: keys differ")
+        unequal = [k for k in fp32 if not torch.equal(pre[k], fp32[k])]
+        check(not unequal, f"real_data uint8: {unequal} differ from fp32")
+        del spec, fp32, pre, feeds
+
+        # one sample with geodesic maps, from the port's FMM build
+        cfg_g = copy.deepcopy(cfg)
+        cfg_g["dataset_params"]["compute_geodesic"] = True
+        t0 = time.perf_counter()
+        lib = geodesic.fmm_library()
+        fmm_build_s = time.perf_counter() - t0
+        ds_g = basic_data(cfg_g)
+        t0 = time.perf_counter()
+        item = ds_g.sample(0)
+        sample_s = time.perf_counter() - t0
+        for c in cfg["dataset_params"]["cam_id_list"]:
+            dis = item[f"cam_{c}_geodesic_dis"]
+            check(dis.shape == (PATCH, PATCH, 1) and np.isfinite(dis).all()
+                  and dis.min() >= 1.0,
+                  f"real_data geodesic cam_{c}: {dis.shape}, "
+                  f"{dis.min()}..{dis.max()}")
+        check(os.path.dirname(lib._name) == str(_build.HOST_BUILD_DIR),
+              f"real_data geodesic: library {lib._name}")
+
+    record = dict(
+        phase="real_data", card=card, fixture=dict(
+            frames=REAL_FRAMES, cameras=4, image=REAL_IMG,
+            pseudo=REAL_PSEUDO, written_s=fixture_s),
+        cv2=cv2.__version__, samples=len(datasets["fp32"]), steps=steps,
+        index_cold_s=index[0], index_cached_s=index[1], train_cli=runs,
+        loader=loader, h2d=h2d, eval=modes,
+        geodesic=dict(library=os.path.relpath(lib._name),
+                      build_s=fmm_build_s, sample_s=sample_s))
+    emit(**record)
+    return record
+
+
+def _timed_train_cli(cfg_path: str, log_dir: str):
+    """The train CLI on `cfg_path`, timed from outside: how long each step
+    waits on the loader's queue, and CUDA events around each train_step.
+    Returns the Trainer and the run's record."""
+    import torch
+
+    from x_as_supervision_tpu_torch.data.loader import BatchLoader
+    from x_as_supervision_tpu_torch.train import trainer as trainer_mod
+    from x_as_supervision_tpu_torch.train.__main__ import main as train_main
+
+    waits, events = [], []
+    epoch_fn, step_fn = BatchLoader.epoch, trainer_mod.train_step
+
+    def timed_epoch(self, epoch=0):
+        batches = epoch_fn(self, epoch)
+        try:
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t)
+                yield batch
+        finally:
+            batches.close()
+
+    def timed_step(*args, **kwargs):
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = step_fn(*args, **kwargs)
+        pair[1].record()
+        events.append(pair)
+        return out
+
+    BatchLoader.epoch, trainer_mod.train_step = timed_epoch, timed_step
+    try:
+        t0 = time.perf_counter()
+        trainer = train_main(["--config", cfg_path, "--seed", str(SEED),
+                              "--log_dir", log_dir])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        BatchLoader.epoch, trainer_mod.train_step = epoch_fn, step_fn
+    return trainer, dict(train_cli_s=train_s,
+                         step_ms=[a.elapsed_time(b) for a, b in events],
+                         loader_wait_ms=[w * 1e3 for w in waits])
+
+
+def _loader_batch_ms(dataset) -> list[float]:
+    """The ms the train CLI's loader takes to make each batch of `dataset`
+    with nothing else running: one warm-up epoch, then LOADER_EPOCHS epochs
+    drained as fast as they come."""
+    from x_as_supervision_tpu_torch.data.loader import BatchLoader
+
+    loader = BatchLoader(dataset, TRAIN_BATCH, num_workers=LOADER_WORKERS,
+                         prefetch=2, seed=SEED)
+    warm = len(loader)
+    for epoch in range(1 + LOADER_EPOCHS):
+        for _ in loader.epoch(epoch):
+            pass
+    loader._pool.shutdown()
+    made = [t * 1e3 for t in loader.batch_seconds[warm:]]
+    check(len(made) == LOADER_EPOCHS * warm >= 2 + 5,
+          f"real_data loader: {len(made)} batches timed")
+    return made
 
 
 def _expect_all(got: dict, skipped: dict, want: set, what: str) -> None:
@@ -1517,6 +1839,7 @@ def main() -> int:
         phase_train_parity()
         train_eval = phase_train_eval()
         phase_eval_parity()
+        phase_real_data(device["nvidia_smi"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -250,13 +250,24 @@ def test_train_then_eval_cli_end_to_end(tmp_path, capsys):
             assert np.isfinite(float(ln.split(":")[1].rstrip(" %"))), ln
 
 
-def test_eval_cli_needs_synthetic_and_a_checkpoint(tmp_path):
+def test_eval_cli_needs_synthetic_and_a_checkpoint(first_epoch, tmp_path):
+    """Without --synthetic the eval CLI reads the config's dataset from
+    disk (here a dataset directory with no index files), and it needs a
+    checkpoint."""
+    _, _, ckpt_dir = first_epoch
+    cfg = _config(1)
+    cfg["dataset_params"].update(
+        dataset={"name": "hm36", "path": str(tmp_path / "hm36"),
+                 "train_image_set": "mini", "test_image_set": "mini"},
+        dataiter={"mean": [0.0] * 3, "std": [255.0] * 3})
     path = tmp_path / "tiny.json"
-    path.write_text(json.dumps(_config(1)))
+    path.write_text(json.dumps(cfg))
     res = _run(["x_as_supervision_tpu_torch.eval", "--config", str(path),
-                "--checkpoint", str(tmp_path), "--device", "cpu"], REPO)
+                "--checkpoint", ckpt_dir, "--device", "cpu"], REPO)
     assert res.returncode != 0
-    assert "only --synthetic data is ported" in res.stderr
+    assert "FileNotFoundError" in res.stderr
+    assert os.path.join("s_09_act_02_subact_01_ca_01",
+                        "matlab_meta.txt") in res.stderr
     from x_as_supervision_tpu_torch.eval.__main__ import main as eval_main
 
     with pytest.raises(SystemExit, match="Must specify checkpoint path"):

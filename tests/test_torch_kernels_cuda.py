@@ -448,3 +448,40 @@ def test_vis_step_on_card_writes_readable_events(dev, tmp_path):
         kernels = [e["name"] for e in json.load(f)["traceEvents"]
                    if e.get("cat") == "kernel"]
     assert any("marginals_kernel" in k for k in kernels), kernels[:20]
+
+
+def test_real_data_uint8_feed_on_card_matches_cpu(dev, tmp_path):
+    """A batch of the on-disk H36M fixture (with its SURREAL pseudo stream)
+    fed as uint8 and normalized by preprocess_batch on the card equals the
+    same on the CPU, and the float feed, exactly."""
+    pytest.importorskip("cv2")
+    import os
+
+    from x_as_supervision_tpu_torch import checks
+    from x_as_supervision_tpu_torch.data.factory import basic_data
+    from x_as_supervision_tpu_torch.models.composed import preprocess_batch
+    from x_as_supervision_tpu_torch.train.factory import (
+        build_gan_spec,
+        flagship_config,
+    )
+
+    root = str(tmp_path / "tree")
+    checks.write_mini_h36m(root, img_size=256, n_frames=4, seed=0)
+    checks.write_surreal_pseudo(os.path.join(root, "surreal_h36m_pose"), 8,
+                                seed=1)
+    batches = {}
+    for uint8 in (False, True):
+        cfg = flagship_config(tiny=True)
+        cfg["dataset_params"] = dict(checks.hm36_dataset_params(root),
+                                     cam_id_list=[0, 1], uint8_feed=uint8)
+        cfg["train_params"].update(batch_size=4, aug=dict(checks.NO_AUG))
+        batches[uint8] = basic_data(cfg, seed=0).device_batch(0, 4)
+    spec = build_gan_spec(cfg)
+    fed = {k: torch.as_tensor(v) for k, v in batches[True].items()}
+    assert fed["cam_0_img"].dtype == torch.uint8
+    cpu = preprocess_batch(fed, spec)
+    card = preprocess_batch({k: v.to(dev) for k, v in fed.items()}, spec)
+    for k, v in cpu.items():
+        assert card[k].device.type == "cuda"
+        assert torch.equal(card[k].cpu(), v), k
+        np.testing.assert_array_equal(v.numpy(), batches[False][k], err_msg=k)

@@ -113,6 +113,24 @@ def test_an_epoch_stopped_early_ends_its_producer():
     assert not producer.is_alive()
 
 
+def test_the_loader_records_each_batchs_production_time():
+    """One entry per batch made, over every epoch, each at least the time
+    of the slowest sample of its batch."""
+    import time
+
+    class Slow(SyntheticPoseDataset):
+        def sample(self, index):
+            time.sleep(0.02)
+            return super().sample(index)
+
+    ds = Slow(num_samples=6, cam_id_list=(0,), patch_size=16)
+    loader = BatchLoader(ds, 2, num_workers=2, prefetch=1)
+    for epoch in range(2):
+        assert len(list(loader.epoch(epoch))) == 3
+        assert len(loader.batch_seconds) == 3 * (epoch + 1)
+    assert min(loader.batch_seconds) >= 0.02
+
+
 def test_loader_rejects_uneven_shards():
     ds = SyntheticPoseDataset(num_samples=4, patch_size=16)
     with pytest.raises(ValueError, match="divide evenly"):

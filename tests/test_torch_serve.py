@@ -174,6 +174,7 @@ def test_port_imports_no_jax():
         "bad = [n for n in sys.modules if n.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'x_as_supervision_tpu')]\n"
         "print(len(names))\n"
+        "print(' '.join(names))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -181,5 +182,10 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     # every module: config, infer, serve, weights, models/{,detector,resnet},
-    # ops/{,_build,conv_bn,geometry,integral,integral_kernel}
-    assert int(res.stdout.split()[-1]) >= 13
+    # ops/{,_build,conv_bn,geometry,integral,integral_kernel}, and the
+    # datasets of data/
+    count, names = res.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 13
+    for mod in ("affine", "augment", "factory", "geodesic", "hm36", "imdb",
+                "loader", "mpi_inf_3dhp", "pipeline", "samples"):
+        assert f"x_as_supervision_tpu_torch.data.{mod}" in names.split()

@@ -4,7 +4,8 @@ for NVIDIA Hopper (H100).
 The JAX package beside it is the reference; this package imports nothing of
 it, nor JAX. What is ported so far is the serving path, the flagship fused
 GAN training step with its checkpoints, TensorBoard logging and the train
-CLI's flags, and the eval that scores them:
+CLI's flags, the eval that scores them, and the datasets they read from
+disk:
 
   serve.py    PoseEstimator: preprocess, batched detector forward, pixels,
               patch -> world lift
@@ -20,12 +21,16 @@ CLI's flags, and the eval that scores them:
   ops/        integral decode and its gradient, fused BN->ReLU->conv3x3
               link, small-channel conv3x3, renderer, geometry and the DLT
               triangulation, losses, and the ctypes bindings of the CUDA
-              kernels in csrc/
-  data/       the synthetic multi-camera pose fixture and the epoch-shuffled
+              kernels in csrc/ (and of the host C++ in csrc/host/)
+  data/       the datasets: Human3.6M and MPI-INF-3DHP index builders with
+              their pickle cache, the patch pipeline (crop, augmentation,
+              masks, the SURREAL pseudo stream, geodesic maps from the
+              port's own FMM build), the dataset classes and basic_data;
+              the synthetic multi-camera pose fixture; the epoch-shuffled
               thread-pool batch loader
   checks.py   helpers shared by the tests and chip_smoke.py (the anchored
               eval fixture, eval_result.txt reader, state comparison,
-              TensorBoard event reader)
+              TensorBoard event reader, miniature on-disk datasets)
   weights.py  JAX variables -> state_dicts; seeded weights; the ImageNet
               backbone init
   config.py   YAML / JSON config loading

@@ -228,3 +228,265 @@ def events_in(log_dir: str) -> dict:
     """read_events of every event file in `log_dir`, by file name."""
     return {name: read_events(os.path.join(log_dir, name))
             for name in sorted(os.listdir(log_dir)) if "tfevents" in name}
+
+
+# ------------------------------------------------- on-disk dataset fixtures
+#
+# Miniature datasets in the real datasets' own layouts, read by the port's
+# index builders and pipeline (data/): images rendered from the GT joints,
+# so the crops hold the body. They need cv2 (and scipy for MPI-INF-3DHP).
+
+H36M_FOLDER = "s_09_act_02_subact_01"
+
+
+def write_mini_h36m(root, img_size: int = 640, n_frames: int = 8,
+                    seed: int = 0, folders=(H36M_FOLDER,),
+                    images: bool = True) -> str:
+    """A Human3.6M tree under <root>/hm36: per folder and camera (4)
+    ``annot/<folder>_ca_0<c>/matlab_meta.txt`` in the reference's line
+    format (reference hm36.py:60-98), and with `images` the
+    ``images/<folder>_ca_0<c>/<folder>_ca_0<c>_<frame>.jpg`` renders of the
+    GT skeleton and their SAM masks ``<root>/sam_masks/hm36/...png``.
+    The default folder is the ``mini`` subset policy's; the files equal
+    those of the JAX package's tests/fixture_helpers.py:make_mini_h36m for
+    the same arguments. Returns <root>/hm36 (dataset_params.dataset.path).
+    `root` must not contain ``hm36`` or ``images`` (the mask path rewrite,
+    data/pipeline.py:mask_path_for)."""
+    from .data.affine import cv2_module
+    from .data.synthetic import H36M_PARENT_IDS, _random_pose
+
+    cv2 = cv2_module()
+    hm_root = os.path.join(root, "hm36")
+    rng = np.random.default_rng(seed)
+    # the 17 H36M joints placed into the 32-joint world layout the meta holds
+    jt_list = [1, 2, 3, 4, 7, 8, 9, 13, 14, 15, 16, 18, 19, 20, 26, 27, 28]
+
+    def write_meta(path, kps32, rot, trans, fl, c_p):
+        lines = [str(n_frames), "size %d %d" % (img_size, img_size),
+                 "rot " + " ".join(str(v) for v in rot.T.flatten()),
+                 "trans " + " ".join(str(v) for v in trans),
+                 "fl " + " ".join(str(v) for v in fl),
+                 "cp " + " ".join(str(v) for v in c_p),
+                 "kp 0 0 0", "pp 0 0",
+                 "jt " + " ".join(str(v) for v in jt_list)]
+        lines += ["kp " + " ".join("%.4f" % v for v in kps32[f].flatten())
+                  for f in range(n_frames)]
+        with open(path, "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+    for folder in folders:
+        poses18 = np.stack([_random_pose(rng) for _ in range(n_frames)])
+        kps32 = np.zeros((n_frames, 32, 3))
+        for out_idx, meta_idx in enumerate(jt_list):
+            kps32[:, meta_idx - 1] = poses18[:, out_idx]
+        for cam in range(4):
+            angle = cam * np.pi / 2 + 0.3
+            c, s = np.cos(angle), np.sin(angle)
+            rot = np.array([[c, 0, -s], [0, 1, 0], [s, 0, c]])
+            trans = rot.T @ np.array([0.0, 0.0, -4000.0])
+            fl = np.array([600.0, 600.0])
+            c_p = np.array([img_size / 2, img_size / 2])
+            cam_folder = f"{folder}_ca_{cam + 1:02d}"
+            annot_dir = os.path.join(hm_root, "annot", cam_folder)
+            os.makedirs(annot_dir, exist_ok=True)
+            write_meta(os.path.join(annot_dir, "matlab_meta.txt"), kps32,
+                       rot, trans, fl, c_p)
+            if not images:
+                continue
+            img_dir = os.path.join(hm_root, "images", cam_folder)
+            mask_dir = os.path.join(root, "sam_masks", "hm36", cam_folder)
+            os.makedirs(img_dir, exist_ok=True)
+            os.makedirs(mask_dir, exist_ok=True)
+            for f in range(n_frames):
+                cam_pts = (kps32[f, [j - 1 for j in jt_list]] - trans) @ rot.T
+                u = (cam_pts[:, 0] / cam_pts[:, 2] * fl[0] + c_p[0]).astype(int)
+                v = (cam_pts[:, 1] / cam_pts[:, 2] * fl[1] + c_p[1]).astype(int)
+                # thorax = shoulder midpoint (index 17 of the 18 joints)
+                u = np.append(u, (u[11] + u[14]) // 2)
+                v = np.append(v, (v[11] + v[14]) // 2)
+                body = np.zeros((img_size, img_size), np.uint8)
+                for j, p in enumerate(H36M_PARENT_IDS):
+                    cv2.line(body, (u[j], v[j]), (u[p], v[p]), 255, 9)
+                img = np.dstack([body // 2, (body // 3) * 2, body])
+                img = (img + rng.integers(0, 15, img.shape)).astype(np.uint8)
+                name = "%s_%06d" % (cam_folder, f + 1)
+                cv2.imwrite(os.path.join(img_dir, name + ".jpg"), img)
+                cv2.imwrite(os.path.join(mask_dir, name + ".png"), body)
+    return hm_root
+
+
+def _stick_figure(joints_px, size: int, parent_ids, width: int):
+    """(size, size) uint8 body of 255s: the skeleton's bones as lines."""
+    from .data.affine import cv2_module
+
+    cv2 = cv2_module()
+    body = np.zeros((size, size), np.uint8)
+    pts = np.round(joints_px).astype(int)
+    for j, p in enumerate(parent_ids):
+        cv2.line(body, tuple(pts[j]), tuple(pts[p]), 255, width)
+    return body
+
+
+def write_surreal_pseudo(root, n: int, seed: int = 0, size: int = 256,
+                         fmt: str = "ori_surreal") -> str:
+    """A pseudo-image stream (dataset_params.smpl_pseudo_img) in `root`,
+    whose name must hold ``surreal_h36m_pose`` (fmt ``ori_surreal``) or
+    ``smpl_pseudo_img`` (fmt ``no_texture``), as data/pipeline.py
+    dispatches on it. ``ori_surreal``, the layout of the JAX package's
+    tools/surreal_constructor.py: `n` entries ``image/image_%06d.png``
+    (BGR), ``mask/mask_%06d.png`` (0/1) and ``joints/joint_%06d.npy`` (18 x
+    3: x, y in [-1, 1] of the patch, z in meters from the pelvis), their
+    numbers (every third) in ``info.npy``. ``no_texture``: `n` iterations
+    of batch 2 for cameras 0 and 1, ``image/<it>_cam_<c>_<b>.png`` and
+    ``joints/<it>_cam_<c>_<b>.npy``, and ``info.npy`` the dict
+    {max_iter_num, batch_size, cam_id_list}. Returns `root`."""
+    from .data.affine import cv2_module
+    from .data.synthetic import H36M_PARENT_IDS, _random_pose
+
+    cv2 = cv2_module()
+    rng = np.random.default_rng(seed)
+    for sub in ("image", "mask", "joints"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+
+    def entry(stem_img, stem_joint, stem_mask=None):
+        pose = _random_pose(rng)  # mm, pelvis-centered
+        xy = pose[:, :2] / 2000.0 * 2  # the 2000 mm box -> [-1, 1]
+        px = (xy + 1) / 2 * (size - 1)
+        body = _stick_figure(px, size, H36M_PARENT_IDS, max(2, size // 40))
+        img = np.dstack([body // 3, body // 2, body])
+        img = (img + rng.integers(0, 20, img.shape) * (body[..., None] > 0)
+               ).astype(np.uint8)
+        joints = np.concatenate([xy, pose[:, 2:] / 1000.0], axis=1)
+        cv2.imwrite(os.path.join(root, "image", stem_img + ".png"), img)
+        np.save(os.path.join(root, "joints", stem_joint + ".npy"),
+                joints.astype(np.float32))
+        if stem_mask is not None:
+            cv2.imwrite(os.path.join(root, "mask", stem_mask + ".png"),
+                        (body > 0).astype(np.uint8))
+
+    if fmt == "ori_surreal":
+        numbers = [3 * i for i in range(n)]
+        for k in numbers:
+            entry(f"image_{k:06d}", f"joint_{k:06d}", f"mask_{k:06d}")
+        np.save(os.path.join(root, "info.npy"), np.array(numbers))
+    elif fmt == "no_texture":
+        info = {"max_iter_num": n, "batch_size": 2, "cam_id_list": [0, 1]}
+        for it in range(n):
+            for c in info["cam_id_list"]:
+                for b in range(info["batch_size"]):
+                    entry(f"{it}_cam_{c}_{b}", f"{it}_cam_{c}_{b}")
+        np.save(os.path.join(root, "info.npy"), info, allow_pickle=True)
+    else:
+        raise ValueError(f"fmt {fmt!r}: 'ori_surreal' or 'no_texture'")
+    return root
+
+
+def write_mini_mpi(root, img_size: int = 2048, n_frames: int = 3,
+                   seed: int = 4, subjects=(7, 8)) -> str:
+    """An MPI-INF-3DHP tree under <root>/mpi_inf_3dhp: for each subject and
+    both sequences, ``annot.mat`` (annot3: camera-frame 28-joint poses of
+    all 14 cameras), ``camera.calibration``, and for the five chest-height
+    cameras the frames ``images/video_<v>/frame_%06d.jpg``, their exposure
+    masks (``masks/``, red channel) and chair masks (``chair_masks/``, all
+    white: no joint occluded), and the SAM masks the pipeline reads
+    (<root>/sam_masks/mpi_inf_3dhp/..., red channel), as the JAX package's
+    tests/test_mpi_e2e.py writes them. The default subjects are the
+    ``valid`` policy's. Returns <root>/mpi_inf_3dhp."""
+    from scipy.io import savemat
+
+    from .data import mpi_inf_3dhp as M
+    from .data.affine import cv2_module
+
+    cv2 = cv2_module()
+    mpi_root = os.path.join(root, "mpi_inf_3dhp")
+    rng = np.random.default_rng(seed)
+    f = 1500.0 * img_size / 2048
+    intr = [[f, f, img_size / 2, img_size / 2]] * M.TOTAL_MPI_VIDEO_NUM
+    for subject in subjects:
+        for seq in M.MPI_SEQ_IDX:
+            rel = os.path.join(f"S{subject}", f"Seq{seq}")
+            seq_dir = os.path.join(mpi_root, rel)
+            kps_w = rng.normal(scale=250.0, size=(n_frames, M.MPI_JT_NUM, 3))
+            kps_w[..., 2] *= 0.3
+            pelvis_w = kps_w[:, M.MPI_TRAIN_ROOT_JT_IDX].mean(axis=0)
+            extr = []
+            annot3 = np.empty((M.TOTAL_MPI_VIDEO_NUM, 1), dtype=object)
+            for cam_id in range(M.TOTAL_MPI_VIDEO_NUM):
+                ang = cam_id * 0.37
+                c, s = np.cos(ang), np.sin(ang)
+                rot = np.array([[c, 0.0, -s], [0.0, 1.0, 0.0], [s, 0.0, c]])
+                ex = np.eye(4)
+                ex[:3, :3] = rot
+                ex[:3, 3] = np.array([0.0, 0.0, 4000.0]) - rot @ pelvis_w
+                extr.append(ex)
+                annot3[cam_id, 0] = (kps_w @ rot.T + ex[:3, 3]).reshape(
+                    n_frames, -1)
+            os.makedirs(seq_dir, exist_ok=True)
+            savemat(os.path.join(seq_dir, "annot.mat"), {"annot3": annot3})
+            lines = []
+            for cam_id in range(M.TOTAL_MPI_VIDEO_NUM):
+                fx, fy, cx, cy = intr[cam_id]
+                lines += [
+                    f"name          {cam_id}", "  sensor      10 10",
+                    f"  size        {img_size} {img_size}", "  animated    0",
+                    "  intrinsic   " + " ".join(str(v) for v in [
+                        fx, 0, cx, 0, 0, fy, cy, 0, 0, 0, 1, 0, 0, 0, 0, 1]),
+                    "  extrinsic   " + " ".join(
+                        str(v) for v in extr[cam_id].flatten()),
+                    "  radial      0"]
+            with open(os.path.join(seq_dir, "camera.calibration"), "w") as fh:
+                fh.write("\n".join(lines) + "\n")
+            for vid in M.USE_MPI_VIDEO_IDX:
+                dirs = [os.path.join(seq_dir, sub, f"video_{vid}") for sub in
+                        ("images", "masks", "chair_masks")]
+                dirs.append(os.path.join(root, "sam_masks", "mpi_inf_3dhp",
+                                         rel, "masks", f"video_{vid}"))
+                for d in dirs:
+                    os.makedirs(d, exist_ok=True)
+                rot, t = extr[vid][:3, :3], extr[vid][:3, 3]
+                fx, fy, cx, cy = intr[vid]
+                for fr in range(n_frames):
+                    cam_kps = kps_w[fr] @ rot.T + t
+                    uv = np.stack([cam_kps[:, 0] / cam_kps[:, 2] * fx + cx,
+                                   cam_kps[:, 1] / cam_kps[:, 2] * fy + cy],
+                                  axis=1).astype(int)
+                    body = _stick_figure(uv, img_size, M.MPI_PARENT_IDS,
+                                         max(2, img_size // 100))
+                    img = np.dstack([body // 2, body // 3, body])
+                    img += rng.integers(0, 20, img.shape, dtype=np.uint8)
+                    red = np.dstack([body * 0, body * 0, body])
+                    name = "frame_%06d.jpg" % (fr + 1)
+                    cv2.imwrite(os.path.join(dirs[0], name), img)
+                    cv2.imwrite(os.path.join(dirs[1], name), red)
+                    cv2.imwrite(os.path.join(dirs[2], name),
+                                np.full((img_size, img_size, 3), 255,
+                                        np.uint8))
+                    cv2.imwrite(os.path.join(dirs[3], name), red)
+    return mpi_root
+
+
+def hm36_dataset_params(root) -> dict:
+    """config/HM36_Multi_SurS2.yaml's dataset_params (the card's machine
+    has no yaml) with the dataset's path, both image sets and the pseudo
+    stream pointed at the fixtures write_mini_h36m and write_surreal_pseudo
+    write under `root` (``mini``; <root>/surreal_h36m_pose)."""
+    return {
+        "dataset": {"name": "hm36", "path": os.path.join(root, "hm36"),
+                    "train_image_set": "mini", "test_image_set": "mini",
+                    "sample_interval": 60, "extra_param": ""},
+        "dataiter": {"mean": [0.0, 0.0, 0.0],
+                     "std": [255.0, 255.0, 255.0]},
+        "smpl_pseudo_img": {
+            "use_flag": True, "use_mask": True,
+            "data_path": os.path.join(root, "surreal_h36m_pose")},
+        "use_full_kp": False,
+        "rm_bg": True,
+        "cam_id_list": [0, 1, 2, 3],
+        "geodesic_pt_list": [],
+        "geodesic_param_list": [2, 1, 3, 20, 0.0],
+    }
+
+
+# config/HM36_Multi_SurS2.yaml's train_params.aug: no augmentation
+NO_AUG = {"scale_factor": 0.0, "rot_factor": 0, "color_factor": 0.0,
+          "rot_aug_rate": 0.0, "flip_aug_rate": 0.0, "do_flip_aug": False}

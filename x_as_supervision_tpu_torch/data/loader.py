@@ -4,7 +4,8 @@ batches in the same order for the same seed).
 
 A thread pool runs the per-sample pipeline, batches are assembled in
 submission order, and a bounded prefetch queue keeps the card fed while the
-current step runs. Per-shard slicing and epoch-keyed shuffling reproduce
+current step runs. ``batch_seconds`` records how long each batch took to
+make: a consumer whose step is shorter than that waits on the queue. Per-shard slicing and epoch-keyed shuffling reproduce
 DistributedSampler semantics (reference: train.py:153,278): epoch e visits
 ``np.random.default_rng(seed + e).permutation(len(dataset))``.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -78,6 +80,9 @@ class BatchLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self._pool = ThreadPoolExecutor(max_workers=num_workers)
+        # seconds from submitting each batch's samples to its collation, in
+        # the order made, over every epoch
+        self.batch_seconds: list[float] = []
 
     def __len__(self):
         n = len(self.dataset) // self.global_batch
@@ -112,9 +117,11 @@ class BatchLoader:
             for step in range(steps):
                 if stop.is_set():
                     return
+                t0 = time.perf_counter()
                 futures = submit(step)
-                samples = [f.result() for f in futures]
-                q.put(_collate(samples))
+                batch = _collate([f.result() for f in futures])
+                self.batch_seconds.append(time.perf_counter() - t0)
+                q.put(batch)
             q.put(None)
 
         t = threading.Thread(target=producer, daemon=True)

@@ -4,6 +4,10 @@
         --checkpoint <ckpt_dir> [--multi_hypo best|confident] \\
         [--batch_size N] [--worker N] [--synthetic] [--device cpu]
 
+Without ``--synthetic`` it scores the ``test_image_set`` of the dataset that
+the config's ``dataset_params`` name on disk (data/factory.py:basic_data
+with ``eval_only``).
+
 It takes the detector out of a train checkpoint, evaluates it in bf16 (as
 eval.py builds it) on the CUDA card unless given ``--device cpu``, writes
 ``<run>/eval/eval_result.txt`` beside the checkpoint and each batch's pose
@@ -20,29 +24,28 @@ import torch
 
 
 def run_eval(config: dict, checkpoint: str, multi_hypo: str = "best",
-             synthetic: bool = True, batch_size: int | None = None,
+             synthetic: bool = False, batch_size: int | None = None,
              device=None):
     """Evaluates the detector of `checkpoint` under `config` (a loaded
     config dict) in bf16, logs its panels and writes eval_result.txt;
-    returns the Evaluator, which holds the result's path, the ambiguity
-    ratio, the per-batch times and the event writer (``tb_logger``)."""
+    returns the Evaluator, which holds the result's path, the tables it
+    was written from (``tables``, as ``record`` normalized them), the
+    ambiguity ratio, the per-batch times and the event writer
+    (``tb_logger``)."""
     from ..config import apply_overrides
-    from ..data.synthetic import synthetic_dataset
+    from ..data.factory import build_dataset
     from ..models.detector import build_detector
     from ..train import checkpoint as ckpt
     from ..train.evaluator import Evaluator
     from ..train.logging import create_writer
 
-    if not synthetic:
-        raise SystemExit("only --synthetic data is ported; the real "
-                         "datasets are not")
     config = apply_overrides(config, batch_size, None)
     detector = build_detector(config["model_params"]["detector_params"],
                               torch.bfloat16)
     detector.load_state_dict(ckpt.restore_detector(checkpoint))
     log_dir = os.path.dirname(os.path.abspath(checkpoint))
-    evaluator = Evaluator(config, detector, synthetic_dataset(config),
-                          log_dir, device=device)
+    dataset = build_dataset(config, synthetic, eval_only=True)
+    evaluator = Evaluator(config, detector, dataset, log_dir, device=device)
     tb_logger = create_writer(os.path.join(log_dir, "eval", "tensorboard"))
     try:
         tables = evaluator.eval(mode=multi_hypo, tb_log=tb_logger)
@@ -50,6 +53,7 @@ def run_eval(config: dict, checkpoint: str, multi_hypo: str = "best",
         tb_logger.close()
     evaluator.tb_logger = tb_logger
     evaluator.result_path = evaluator.record(*tables)
+    evaluator.tables = tables
     return evaluator
 
 

@@ -18,6 +18,7 @@ keeps every activation).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -83,6 +84,13 @@ class GanSpec:
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _feed_constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """`values` as an fp32 tensor on `device`, copied there once: a host
+    tensor copied at every step would make the host wait on the card."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def preprocess_batch(batch: dict, spec: GanSpec) -> dict:
     """Feed normalization of uint8 tensors: images (x - mean) / std, masks
     / 255, then rm_bg's img *= mask; float tensors pass through untouched."""
@@ -94,13 +102,16 @@ def preprocess_batch(batch: dict, spec: GanSpec) -> dict:
         if k.endswith("_img") or k.endswith("_pseudo_img"):
             x = v.float()
             if spec.feed_mean is not None and spec.feed_std is not None:
-                x = ((x - torch.tensor(spec.feed_mean, device=x.device))
-                     / torch.tensor(spec.feed_std, device=x.device))
+                x = ((x - _feed_constant(spec.feed_mean, x.device))
+                     / _feed_constant(spec.feed_std, x.device))
             out[k] = x
             if not k.endswith("_pseudo_img"):
                 was_u8.add(k)
         elif k.endswith("_mask"):
-            out[k] = v.float() / 255.0
+            # a tensor divisor: PyTorch's CUDA division by a Python scalar
+            # multiplies by its reciprocal, which is not x / 255 in every
+            # last bit (the host's fp32 feed divides)
+            out[k] = v.float() / torch.full((), 255.0, device=v.device)
     if spec.feed_rm_bg:
         for k in was_u8:
             mk = k[: -len("_img")] + "_mask"

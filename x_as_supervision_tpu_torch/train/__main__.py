@@ -1,12 +1,15 @@
 """The port's training CLI, the twin of the JAX package's train.py:
 
     python -m x_as_supervision_tpu_torch.train --config <yaml|json> \\
-        --synthetic [--seed S] [--epoch N] [--steps N] [--batch_size B] \\
+        [--synthetic] [--seed S] [--epoch N] [--steps N] [--batch_size B] \\
         [--worker N] [--backbone_init FILE] [--log_dir DIR] \\
         [--checkpoint <ckpt_dir>|auto] [--finetune] [--extra_tag T] \\
         [--device cpu] [--fp32]
 
-It writes ``<log_dir>/<cfg>_seed<s>_<tag><timestamp>/{epoch:05d}_ckpt`` every
+Without ``--synthetic`` it trains on the dataset that the config's
+``dataset_params`` name on disk (``hm36``, ``mpi_inf_3dhp`` or
+``mpi_inf_3dhp+hm36``: data/factory.py:basic_data). It writes
+``<log_dir>/<cfg>_seed<s>_<tag><timestamp>/{epoch:05d}_ckpt`` every
 ``checkpoint_freq`` epochs and at the last one, and TensorBoard events into
 ``tensorboard/`` beside them. ``--seed -1`` (the default) seeds from the
 clock and names the run ``seed_rand_``. ``--checkpoint`` resumes from a
@@ -65,15 +68,12 @@ def main(argv=None):
     import torch
 
     from ..config import apply_overrides, load_config
-    from ..data.synthetic import synthetic_dataset
+    from ..data.factory import build_dataset
     from .logging import create_writer
     from .trainer import Trainer, auto_checkpoint, create_run_dir
 
     config = apply_overrides(load_config(opt.config), opt.batch_size,
                              opt.epoch)
-    if not opt.synthetic:
-        raise SystemExit("only --synthetic data is ported; the real "
-                         "datasets are not")
     setup_seed(opt.seed)
     checkpoint = opt.checkpoint
     if checkpoint == "auto":
@@ -83,7 +83,10 @@ def main(argv=None):
                               opt.extra_tag, opt.finetune, checkpoint)
     tb_logger = create_writer(os.path.join(save_dir, "tensorboard"))
     try:
-        trainer = Trainer(config, synthetic_dataset(config), seed=opt.seed,
+        # built here, as train.py builds it: the subset policies draw from
+        # the global numpy state that setup_seed seeded
+        dataset = build_dataset(config, opt.synthetic)
+        trainer = Trainer(config, dataset, seed=opt.seed,
                           dtype=torch.float32 if opt.fp32 else torch.bfloat16,
                           device=opt.device, save_dir=save_dir,
                           checkpoint_path=checkpoint,

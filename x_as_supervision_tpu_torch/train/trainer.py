@@ -8,7 +8,7 @@ checkpoint every ``checkpoint_freq`` epochs and at the last one, with
 resume and finetune from one.
 
     python -m x_as_supervision_tpu_torch.train --config <yaml|json> \\
-        --synthetic [--seed S] [--epoch N] [--steps N] [--batch_size B] \\
+        [--synthetic] [--seed S] [--epoch N] [--steps N] [--batch_size B] \\
         [--worker N] [--backbone_init FILE] [--log_dir DIR] \\
         [--checkpoint <ckpt_dir>|auto] [--finetune] [--extra_tag T] \\
         [--device cpu] [--fp32]
