@@ -93,11 +93,41 @@ Phases, each of which fails the run (nonzero exit, no result line):
    every sample in the act_02 bucket; one batch's host-to-device copy as
    fp32 and as uint8, and the uint8 batch normalized on the card equal to
    the fp32 one; one sample's geodesic maps from the port's own FMM build
-   (build/host/). It fails without cv2 or when the FMM does not build.
+   (build/host/). It fails without cv2 or when the FMM does not build;
+11. variants: the rest of the multi-view model on the card.
+   Campaign_SurS2_percam's model_params (per_camera_bn, the decoupled SAGE
+   discriminator; the JSON copy in x_as_supervision_tpu_torch/configs/) at
+   the flagship shape in bf16 on synthetic data, then with use_aug, and
+   with each of the res_sage_gcn, res_gcn (use_bn) and simple_gcn
+   discriminators: 1 warm-up and 2 timed steps each (CUDA events), peak
+   memory, every loss finite, and the launches per step by kernel (counts
+   set to 0 just before the timed steps): decode 2 + 2, link 56 (one per
+   camera slice, all on wgmma), conv3x3 14 + 4. The link on each camera's
+   slice of a (128, C, H, W) channels-last batch at 256@16^2 and 512@8^2,
+   fp32 and bf16, against its plain version with the kernel phase's
+   bounds, and a grouped Bottleneck (4 launches) against the plain grouped
+   path. The percam step and a control with pooled statistics each
+   profiled over one more step. One fused fp32 step of phase 7's reduced
+   config at batch 4 (per camera the images of phase 7's pooled
+   statistics) with per_camera_bn, use_aug and res_gcn (use_bn), card
+   against CPU with phase 7's bounds; both sides take the same rotation
+   uniforms, drawn on the CPU from a seeded generator and passed to
+   train_step as rot_draws (the two devices' generators draw different
+   bits). The SMPL chain
+   (rule_transformation -> smpl_forward -> smpl_to_h36m ->
+   project_smpl_to_patch_kps) on a seeded random body model at SMPL's size
+   (6890 vertices, 24 joints, 207 pose blend shapes, 10 betas), batch 128,
+   card against CPU from the same draws: world vertices within 0.05 mm,
+   patch keypoints within 5e-3 patch pixels. Then the percam config (the
+   flagship's dataset_params) through the train CLI for one epoch (4
+   steps, the launches per step above) to 00000_ckpt, restored bitwise,
+   and the eval CLI in best mode (per batch decode 4, link 28: eval uses
+   the running statistics).
 
 Earlier lines carry the findings as JSON; the line before the last lists the
-kernels (launches per training step, per serving forward and per eval
-batch), and the last line is {"ok": true, "device": {...}}.
+kernels (launches per training step, per serving forward, per eval batch
+and per step on the per-camera path), and the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -174,6 +204,31 @@ LOADER_EPOCHS = 3
 LOADER_WORKERS = 10
 # the real-data feeds: fp32 images from the host, or uint8_feed
 FEEDS = ("fp32", "uint8")
+
+# the per-camera path: Campaign_SurS2_percam at the flagship shape (its JSON
+# copy: the card's machine has no yaml); the variants of its
+# smpl_disc_params; timed steps after one warm-up
+PERCAM_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "x_as_supervision_tpu_torch", "configs",
+                             "Campaign_SurS2_percam.json")
+VARIANTS = {
+    "percam": {},
+    "percam_use_aug": {"use_aug": True},
+    "percam_res_sage_gcn": {"name": "res_sage_gcn"},
+    "percam_res_gcn": {"name": "res_gcn", "use_bn": True},
+    "percam_simple_gcn": {"name": "simple_gcn"},
+}
+VARIANT_STEPS = 2
+# launches per step under per-camera BN: the link once per camera slice of
+# each train-mode Bottleneck (14 x 4 cameras); the rest as the flagship's
+VARIANT_LAUNCHES = dict(TRAIN_LAUNCHES, conv_bn_link=56)
+VARIANT_PATH_LAUNCHES = dict(
+    TRAIN_PATH_LAUNCHES,
+    conv_bn_link={"launches_wgmma": 56, "launches_fma": 0})
+CAMERAS = TRAIN_IMAGES // TRAIN_BATCH
+# the SMPL chain: SMPL's own size, batch 128
+SMPL_VERTS = 6890
+SMPL_BATCH = 128
 
 KERNELS = {
     "integral_marginals": dict(
@@ -984,11 +1039,28 @@ def _parity_config() -> dict:
     return cfg
 
 
+def _dropout_off(disc) -> None:
+    """The discriminator's dropout off (each kind keeps its own p)."""
+    if hasattr(disc, "header") and hasattr(disc.header, "p_dropout"):
+        disc.header.p_dropout = 0.0
+    if hasattr(disc, "p_dropout"):
+        disc.p_dropout = 0.0
+
+
 def phase_train_parity() -> dict:
     """One fused step of a reduced flagship config in fp32 on the card
     (TF32 off) against the CPU's plain path, from the same weights and
     batch. Dropout is off on both sides: the two devices' generators draw
     different bits."""
+    return _train_parity(_parity_config(), "train_parity",
+                         "flagship reduced: ResNet-50 at 64^2, 2 cameras, "
+                         "batch 2, D = 16")
+
+
+def _train_parity(cfg: dict, phase: str, config: str,
+                  rot_draws: dict | None = None) -> dict:
+    """phase_train_parity's step and checks for `cfg`; `rot_draws` (CPU
+    tensors) are use_aug's uniforms, the same on both sides."""
     import torch
 
     from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
@@ -997,17 +1069,23 @@ def phase_train_parity() -> dict:
     from x_as_supervision_tpu_torch.train.state import train_step
     from x_as_supervision_tpu_torch.train.trainer import to_device
 
+    def draws(device):
+        return (None if rot_draws is None else
+                {k: v.to(device) for k, v in rot_draws.items()})
+
     def gen_grads(spec, state, batch):
-        losses, decode = generator_forward(spec, batch)
+        rot_u = None if rot_draws is None else draws(batch[
+            "cam_0_img"].device)["gen"]
+        losses, decode = generator_forward(spec, batch, rot_u=rot_u)
         total = sum(v.mean() for v in losses.values())
         grads = torch.autograd.grad(total, state.gen_params
                                     + state.disc_params, allow_unused=True)
         return dict(zip(_named_params(state), grads)), decode.kps.detach()
 
-    cfg = _parity_config()
     lr = float(cfg["train_params"]["lr_kp_detector"])
-    batch = SyntheticPoseDataset(num_samples=2, cam_id_list=(0, 1),
-                                 patch_size=64, seed=SEED).batch(0, 2)
+    b = cfg["train_params"]["batch_size"]
+    batch = SyntheticPoseDataset(num_samples=b, cam_id_list=(0, 1),
+                                 patch_size=64, seed=SEED).batch(0, b)
     cpu_spec, cpu_state = _gan(cfg, torch.float32, "cpu", SEED)
     card_spec, card_state = _gan(cfg, torch.float32, "cuda", SEED)
     # a random-weight ResNet-50 in train mode at 64^2 (BatchNorm over 16
@@ -1023,9 +1101,12 @@ def phase_train_parity() -> dict:
         getattr(card_spec, name).load_state_dict(
             getattr(cpu_spec, name).state_dict())
     for spec in (cpu_spec, card_spec):
-        spec.discriminator.header.p_dropout = 0.0
+        _dropout_off(spec.discriminator)
     cancelled = {"physique." + n
                  for n in card_spec.physique.bn_cancelled_biases()}
+    if hasattr(card_spec.discriminator, "bn_cancelled_biases"):
+        cancelled |= {"discriminator." + n for n in
+                      card_spec.discriminator.bn_cancelled_biases()}
     before = {n: p.detach().clone()
               for n, p in _named_params(cpu_state).items()}
     cpu_batch, card_batch = to_device(batch, "cpu"), to_device(batch, "cuda")
@@ -1044,19 +1125,19 @@ def phase_train_parity() -> dict:
                        / w.abs().max()).item()
     worst_grad = max(grad_err, key=grad_err.get)
     kps_err = (got_kps.cpu() - want_kps).abs().amax(dim=(0, 2)).tolist()
-    emit(phase="train_parity_grads", kps_max_err_by_hypo_and_coord=kps_err,
+    emit(phase=f"{phase}_grads", kps_max_err_by_hypo_and_coord=kps_err,
          worst=sorted(grad_err.items(), key=lambda kv: -kv[1])[:12])
     # the generator's gradient, per tensor, relative to its largest entry:
     # fp32 through the conditioned ResNet-50 (kernels and cuDNN on the card,
     # the plain versions on the CPU) summed in other orders (the first
     # conditioned card run: 1.3e-3 at most); a wrong backward is off by O(1)
     check(grad_err[worst_grad] <= 1e-2,
-          f"train-parity: gradient of {worst_grad} off by "
+          f"{phase}: gradient of {worst_grad} off by "
           f"{grad_err[worst_grad]} of its largest entry")
-    want = train_step(cpu_state, cpu_batch)
+    want = train_step(cpu_state, cpu_batch, rot_draws=draws("cpu"))
     set_tf32(False)
     try:
-        got = train_step(card_state, card_batch)
+        got = train_step(card_state, card_batch, rot_draws=draws("cuda"))
         torch.cuda.synchronize()
     finally:
         set_tf32(True)
@@ -1065,7 +1146,7 @@ def phase_train_parity() -> dict:
     # fp32 through ResNet-50, the decode, the renderer and the physique
     # net, convs and sums in other orders
     check(max(loss_err.values()) <= 1e-4,
-          f"train-parity: loss rel err {loss_err}")
+          f"{phase}: loss rel err {loss_err}")
     want_p = _named_params(cpu_state)
     diffs, largest_update = [], 0.0
     for n, p in _named_params(card_state).items():
@@ -1085,7 +1166,7 @@ def phase_train_parity() -> dict:
     # a largest difference of 1.006 steps and 2e-6 of the weights more than
     # a tenth of a step apart)
     check(ratio <= 2.05 and median <= 1e-3 and over <= 1e-3,
-          f"train-parity: params max|d|/update {ratio}, median {median}, "
+          f"{phase}: params max|d|/update {ratio}, median {median}, "
           f"share over 0.1 {over}")
     stats_err = 0.0
     for name in ("detector", "physique"):
@@ -1096,11 +1177,8 @@ def phase_train_parity() -> dict:
                                             / (v.abs() + 2 * lr)).max().item())
     # fp32 batch statistics of the same activations; a running mean behind
     # a cancelled physique bias moves with that bias (up to a step)
-    check(stats_err <= 1e-2, f"train-parity: running stats rel err "
-                             f"{stats_err}")
-    record = dict(phase="train_parity", dtype="fp32",
-                  config="flagship reduced: ResNet-50 at 64^2, 2 cameras, "
-                         "batch 2, D = 16",
+    check(stats_err <= 1e-2, f"{phase}: running stats rel err {stats_err}")
+    record = dict(phase=phase, dtype="fp32", config=config,
                   loss_rel_err=loss_err,
                   grad_max_rel_err=grad_err[worst_grad],
                   grad_worst_tensor=worst_grad,
@@ -1121,18 +1199,21 @@ def _reset_counts() -> None:
             setattr(fn, attr, 0)
 
 
-def _check_train_launches(steps: int, what: str) -> tuple[dict, dict]:
-    """The launches since _reset_counts, checked against TRAIN_LAUNCHES and
-    TRAIN_PATH_LAUNCHES per step over `steps` steps; returns them per step,
-    by kernel and by path."""
+def _check_train_launches(steps: int, what: str,
+                          want: dict = TRAIN_LAUNCHES,
+                          want_paths: dict = TRAIN_PATH_LAUNCHES
+                          ) -> tuple[dict, dict]:
+    """The launches since _reset_counts, checked against `want` and
+    `want_paths` (by default the flagship step's) per step over `steps`
+    steps; returns them per step, by kernel and by path."""
     counters = _counters()
     launches = {name: fn.launches for name, fn in counters.items()}
-    for name, per_step in TRAIN_LAUNCHES.items():
+    for name, per_step in want.items():
         check(launches[name] == per_step * steps,
               f"{what}: {name} launched {launches[name]} times in {steps} "
               f"steps, expected {per_step} per step")
     paths = {}
-    for name, attrs in TRAIN_PATH_LAUNCHES.items():
+    for name, attrs in want_paths.items():
         paths[name] = {}
         for attr, per_step in attrs.items():
             got = getattr(counters[name], attr)
@@ -1817,6 +1898,371 @@ def phase_eval_parity() -> dict:
     return record
 
 
+def _percam_config() -> dict:
+    """Campaign_SurS2_percam (its JSON copy) with the flagship's
+    dataset_params: 4 cameras, the synthetic fixture's feed."""
+    from x_as_supervision_tpu_torch.config import load_config
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+
+    cfg = load_config(PERCAM_CONFIG)
+    cfg["dataset_params"] = flagship_config()["dataset_params"]
+    cfg["model_params"]["cam_id_list"] = cfg["dataset_params"]["cam_id_list"]
+    return cfg
+
+
+def _variant_steps(name: str, disc_updates: dict, per_camera_bn: bool = True,
+                   profile: bool = False) -> dict:
+    """One warm-up and VARIANT_STEPS timed steps of the percam config with
+    `disc_updates` in its smpl_disc_params, bf16 at the flagship shape
+    (`per_camera_bn` False: the control with pooled statistics); with
+    `profile`, torch.profiler over one more step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from x_as_supervision_tpu_torch.train.state import train_step
+    from x_as_supervision_tpu_torch.train.trainer import (
+        step_generator, to_device)
+
+    cfg = _percam_config()
+    cfg["model_params"]["smpl_disc_params"].update(disc_updates)
+    cfg["model_params"]["per_camera_bn"] = per_camera_bn
+    cams = cfg["dataset_params"]["cam_id_list"]
+    spec, state = _gan(cfg, torch.bfloat16, "cuda", SEED)
+    ds = SyntheticPoseDataset(num_samples=TRAIN_BATCH * (VARIANT_STEPS + 2),
+                              cam_id_list=cams, patch_size=PATCH, seed=SEED)
+    batches = [to_device(ds.batch(i * TRAIN_BATCH, TRAIN_BATCH), "cuda")
+               for i in range(VARIANT_STEPS + 2)]
+
+    def step(i):
+        return train_step(state, batches[i], step_generator(SEED, i, "cuda"))
+
+    step(0)
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(VARIANT_STEPS)]
+    history = []
+    for i, (ev0, ev1) in enumerate(events, start=1):
+        ev0.record()
+        history.append(step(i))
+        ev1.record()
+    torch.cuda.synchronize()
+    launches, paths = _check_train_launches(
+        VARIANT_STEPS, f"variants {name}",
+        *((VARIANT_LAUNCHES, VARIANT_PATH_LAUNCHES) if per_camera_bn
+          else (TRAIN_LAUNCHES, TRAIN_PATH_LAUNCHES)))
+    losses = [{k: float(v) for k, v in sorted(m.items())} for m in history]
+    for m in losses:
+        check(len(m) == 7 and all(np.isfinite(v) for v in m.values()),
+              f"variants {name}: missing or non-finite losses {m}")
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    record = dict(
+        name=name, smpl_disc_params=cfg["model_params"]["smpl_disc_params"],
+        discriminator=type(spec.discriminator).__name__,
+        step_ms=step_ms, mean_step_ms=sum(step_ms) / len(step_ms),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        losses=losses, launches_per_step=launches,
+        path_launches_per_step=paths)
+    emit(phase="variant_steps", **record)
+    if profile:
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+        with profiler(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            ev0.record()
+            step(VARIANT_STEPS + 1)
+            ev1.record()
+            torch.cuda.synchronize()
+        window_us = ev0.elapsed_time(ev1) * 1e3
+        record["profile"] = dict(window_us=window_us,
+                                 **_profile_rows(prof, window_us, 15))
+        emit(phase="variant_profile", name=name, **record["profile"])
+    del spec, state, batches, history
+    torch.cuda.empty_cache()
+    return record
+
+
+def _link_camera_case(dtype, c: int, side: int) -> dict:
+    """The link on each camera's slice of a (128, C, H, W) channels-last
+    batch (a view at an offset, as Bottleneck.forward hands it over),
+    against the plain version with the kernel phase's bounds; times of one
+    slice."""
+    import torch
+    import torch.nn.functional as F
+
+    from x_as_supervision_tpu_torch.ops.conv_bn import (
+        bn_relu_conv_plain, fused_bn_relu_conv)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((TRAIN_IMAGES, c, side, side), generator=gen,
+                    device="cuda").to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    w = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
+         * (2 / (9 * c)) ** 0.5).to(dtype)
+    err = serr = 0.0
+    ymax = 0.0
+    for xs in x.chunk(CAMERAS):
+        scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+        shift = torch.randn(c, generator=gen, device="cuda") * 0.1
+        check(xs.is_contiguous(memory_format=torch.channels_last),
+              "camera slice is not channels-last")
+        y, stats = fused_bn_relu_conv(xs, w, scale, shift)
+        ry, rstats = bn_relu_conv_plain(xs, w, scale, shift)
+        yf = ry.float()
+        ymax = max(ymax, yf.abs().max().item())
+        err = max(err, (y.float() - yf).abs().max().item())
+        mags = torch.stack([yf.abs().sum(dim=(0, 2, 3)),
+                            (yf * yf).sum(dim=(0, 2, 3))])
+        serr = max(serr, ((stats - rstats).abs()
+                          / mags.clamp_min(1e-30)).max().item())
+    torch.cuda.synchronize()
+    tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * ymax
+    check(err <= tol, f"link on camera slices {dtype} {c}x{side}^2: "
+                      f"max|err| {err} > {tol}")
+    check(serr <= 1e-5, f"link on camera slices {dtype} {c}x{side}^2: "
+                        f"stats err {serr} of the sum of magnitudes")
+    kind = _kind(dtype)
+    elt = x.element_size()
+    batch = TRAIN_BATCH
+    n = batch * side * side
+    nbytes = 2 * n * c * elt + 9 * c * c * elt + 2 * c * 4 + 2 * c * 4
+    flops = 2.0 * n * c * 9 * c + 3.0 * n * c
+    bound, by = bound_ms(nbytes, flops, kind)
+    xs = x[batch:2 * batch]
+    return dict(
+        name="conv_bn_link", dtype=kind, shape=[batch, c, side, side],
+        camera_slice=True, max_abs_err=err, tol=tol, stats_rel_err=serr,
+        ms=cuda_ms(lambda: fused_bn_relu_conv(xs, w, scale, shift)),
+        plain_ms=cuda_ms(lambda: bn_relu_conv_plain(xs, w, scale, shift)),
+        library_ms=cuda_ms(lambda: F.conv2d(xs, w, padding=1)),
+        bound_ms=bound, bound_by=by)
+
+
+def _grouped_bottleneck_case(dtype) -> dict:
+    """A train-mode Bottleneck(1024, 256) at 16^2, B = 128, 4 camera
+    groups: the link path (4 launches) against the plain grouped path
+    (BatchNorm per camera slice, cuDNN's conv) on the same input and
+    weights: output and running statistics."""
+    import copy
+
+    import torch
+
+    from x_as_supervision_tpu_torch import weights
+    from x_as_supervision_tpu_torch.models.resnet import (
+        Bottleneck, set_bn_groups)
+    from x_as_supervision_tpu_torch.ops.conv_bn import fused_bn_relu_conv
+
+    groups = CAMERAS
+    block = Bottleneck(1024, 256)
+    weights.init_weights(block, SEED)
+    set_bn_groups(block, groups)
+    block = block.to("cuda").train()
+    plain = copy.deepcopy(block)
+    plain.fused_link = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((TRAIN_IMAGES, 1024, 16, 16), generator=gen,
+                    device="cuda").to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    before = fused_bn_relu_conv.launches
+    with torch.no_grad():
+        y = block(x).float()
+        torch.cuda.synchronize()
+        launches = fused_bn_relu_conv.launches - before
+        ry = plain(x).float()
+    check(launches == groups, f"grouped Bottleneck: {launches} link "
+                              f"launches, expected {groups}")
+    rel = ((y - ry).abs().max() / ry.abs().max()).item()
+    want_sd = plain.state_dict()
+    stats = max(((v - want_sd[k]).abs() / (want_sd[k].abs() + 1e-3)
+                 ).max().item()
+                for k, v in block.state_dict().items() if "running" in k)
+    # fp32: three convs and the per-camera statistics summed in other
+    # orders (the link's bn2 from its one-pass (sum, sumsq)); bf16: the two
+    # paths round the activations to bf16 at other points (2^-8 each),
+    # through two normalizations
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -5
+    check(rel <= tol and stats <= 1e-2,
+          f"grouped Bottleneck {dtype}: output off by {rel} of its largest "
+          f"value (bound {tol}), running stats by {stats}")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: block(x), iters=10)
+        plain_ms = cuda_ms(lambda: plain(x), iters=10)
+    return dict(dtype=_kind(dtype), shape=[TRAIN_IMAGES, 1024, 16, 16],
+                groups=groups, link_launches=launches, max_rel_err=rel,
+                tol=tol, running_stats_rel_err=stats, forward_ms=ms,
+                plain_forward_ms=plain_ms)
+
+
+def _smpl_chain() -> dict:
+    """rule_transformation -> smpl_forward -> smpl_to_h36m ->
+    project_smpl_to_patch_kps at SMPL's size and batch 128, card against
+    CPU from the same draws, fp32."""
+    import torch
+
+    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from x_as_supervision_tpu_torch.models.smpl import (
+        random_smpl_model, smpl_forward)
+    from x_as_supervision_tpu_torch.ops import geometry as G
+    from x_as_supervision_tpu_torch.train.trainer import to_device
+
+    model = random_smpl_model(SEED, SMPL_VERTS)
+    rng = np.random.default_rng(SEED)
+    reg = rng.uniform(0, 1, (17, SMPL_VERTS)).astype(np.float32)
+    reg /= reg.sum(axis=1, keepdims=True)
+    gen = torch.Generator().manual_seed(SEED)
+    draws = G.rule_draws(SMPL_BATCH, gen)
+    rot = G.rotate_z(torch.eye(3).expand(SMPL_BATCH, 3, 3).contiguous(),
+                     torch.rand(SMPL_BATCH, generator=gen))
+    cams = SyntheticPoseDataset(num_samples=SMPL_BATCH, cam_id_list=(0,),
+                                patch_size=PATCH, seed=SEED).batch(
+        0, SMPL_BATCH)
+
+    def chain(device, m, x, r, d, g):
+        pose, beta = G.rule_transformation_from(d)
+        fwd = lambda p, b: smpl_forward(m, p, b)  # noqa: E731
+        kps = G.project_smpl_to_patch_kps(g, pose[:, 3:], beta, fwd, r, x,
+                                          "cam_0")
+        verts = G.project_smpl_to_patch_kps(g, pose[:, 3:], beta, fwd, r, x,
+                                            "cam_0", convert_verts=True)
+        return kps, verts
+
+    args = {}
+    for dev in ("cpu", "cuda"):
+        args[dev] = (dev, model.to(dev), to_device(cams, dev),
+                     torch.from_numpy(reg).to(dev),
+                     {k: v.to(dev) for k, v in draws.items()}, rot.to(dev))
+    want_kps, want_verts = chain(*args["cpu"])
+    set_tf32(False)  # the chain's matmuls turn TF32 off themselves
+    try:
+        kps, verts = chain(*args["cuda"])
+        torch.cuda.synchronize()
+    finally:
+        set_tf32(True)
+    check(kps.shape == (SMPL_BATCH, 18, 3)
+          and verts.shape == (SMPL_BATCH, SMPL_VERTS, 3)
+          and bool(torch.isfinite(kps).all() and torch.isfinite(verts).all()),
+          f"SMPL chain: shapes {tuple(kps.shape)} {tuple(verts.shape)} or "
+          "non-finite values")
+    kps_err = (kps.cpu() - want_kps).abs().max().item()
+    verts_err = (verts.cpu() - want_verts).abs().max().item()
+    # fp32 world mm about 5 m out (a step of 5e-4 mm), summed in other
+    # orders; patch pixels (x, y and the depth, 7.8 mm a pixel) of 256^2
+    check(verts_err <= 0.05 and kps_err <= 5e-3,
+          f"SMPL chain: world vertices off by {verts_err} mm (0.05), patch "
+          f"keypoints by {kps_err} px (5e-3)")
+    ms = cuda_ms(lambda: chain(*args["cuda"]), iters=10)
+    record = dict(batch=SMPL_BATCH, verts=SMPL_VERTS, joints=24,
+                  pose_blend_shapes=207, betas=10,
+                  verts_max_err_mm=verts_err, kps_max_err_px=kps_err,
+                  kps_range_px=[kps.min().item(), kps.max().item()],
+                  card_ms=ms)
+    emit(phase="smpl_chain", **record)
+    return record
+
+
+def _variants_cli() -> dict:
+    """The percam config (the flagship's dataset_params, --synthetic)
+    through the train CLI for one epoch to 00000_ckpt, restored bitwise,
+    then the eval CLI in best mode."""
+    import tempfile
+
+    import torch
+
+    from x_as_supervision_tpu_torch.train.__main__ import main as train_main
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = _percam_config()
+        cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
+        cfg_path = os.path.join(root, "Campaign_SurS2_percam.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        log_dir = os.path.join(root, "log")
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_main(["--config", cfg_path, "--synthetic", "--seed",
+                              str(SEED), "--log_dir", log_dir])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        steps = TRAIN_IMAGES // TRAIN_BATCH
+        check(trainer.state.step == steps,
+              f"variants train CLI: {trainer.state.step} steps, expected "
+              f"{steps}")
+        launches, _ = _check_train_launches(
+            steps, "variants train CLI", VARIANT_LAUNCHES,
+            VARIANT_PATH_LAUNCHES)
+        check(all(np.isfinite(v) for h in trainer.history
+                  for v in h.values()) and trainer.history,
+              f"variants train CLI: losses {trainer.history}")
+        (run,) = os.listdir(log_dir)
+        path = os.path.join(log_dir, run, "00000_ckpt")
+        n_tensors = _check_restore(cfg, path, trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        _, best = _eval_cli(cfg_path, path, "best", synthetic=True)
+    record = dict(train_cli_s=train_s, train_launches_per_step=launches,
+                  restored_tensors=n_tensors, eval_best=best)
+    emit(phase="variants_cli", **record)
+    return record
+
+
+def phase_variants() -> dict:
+    """The rest of the multi-view model on the card (see the module
+    docstring, phase 11)."""
+    import torch
+
+    runs = [_variant_steps(name, updates, profile=name == "percam")
+            for name, updates in VARIANTS.items()]
+    # the control: the same model with pooled statistics (14 links a step)
+    control = _variant_steps("percam_pooled", {}, per_camera_bn=False,
+                             profile=True)
+    links = []
+    for dtype in (torch.float32, torch.bfloat16):
+        set_tf32(False)
+        try:
+            for c, side, _ in LINK_SHAPES:
+                links.append(_link_camera_case(dtype, c, side))
+                emit(phase="variant_link", **links[-1])
+            block = _grouped_bottleneck_case(dtype)
+        finally:
+            set_tf32(True)
+        emit(phase="variant_bottleneck", **block)
+    cfg = _parity_config()
+    mp = cfg["model_params"]
+    mp["per_camera_bn"] = True
+    mp["smpl_disc_params"].update(name="res_gcn", use_bn=True, use_aug=True)
+    # per camera the batch of phase 7's pooled statistics (4 images): at 2
+    # images a camera the CPU's own gradients move by up to 6.7 % of a
+    # tensor's largest entry when the images change by 1e-6 relative (4:
+    # 0.75 %; scripts/parity_sensitivity.py), so the card could not be told
+    # from the CPU at phase 7's bound
+    b = cfg["train_params"]["batch_size"] = 2 * PARITY_BATCH
+    nc, nh = len(mp["cam_id_list"]), mp["detector_params"]["num_hypo"]
+    gen = torch.Generator().manual_seed(SEED)
+    draws = {"gen": torch.rand(nc * b * nh, generator=gen),
+             "disc": torch.rand(nc * b, generator=gen)}
+    parity = _train_parity(
+        cfg, "variant_parity", "flagship reduced (ResNet-50 at 64^2, 2 "
+        "cameras, D = 16) at batch 4 + per_camera_bn, use_aug, res_gcn "
+        "with use_bn", rot_draws=draws)
+    smpl = _smpl_chain()
+    cli = _variants_cli()
+    record = dict(phase="variants", runs=[
+        {k: r[k] for k in ("name", "discriminator", "mean_step_ms",
+                           "peak_memory_gb")} for r in runs + [control]],
+        launches_per_step=runs[0]["launches_per_step"],
+        link_ms_per_camera={f"{c['dtype']} {c['shape']}": c["ms"]
+                            for c in links},
+        parity_loss_rel_err=max(parity["loss_rel_err"].values()),
+        smpl_verts_err_mm=smpl["verts_max_err_mm"],
+        smpl_kps_err_px=smpl["kps_max_err_px"],
+        cli_train_s=cli["train_cli_s"])
+    emit(**record)
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -1840,6 +2286,7 @@ def main() -> int:
         train_eval = phase_train_eval()
         phase_eval_parity()
         phase_real_data(device["nvidia_smi"])
+        variants = phase_variants()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1871,6 +2318,7 @@ def main() -> int:
             serve_launches=serve["launches"].get(name),
             eval_launches=train_eval["modes"]["best"][
                 "launches_per_batch"][name],
+            variants_launches=variants["launches_per_step"][name],
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -127,8 +127,24 @@ def test_resnet50_detector_matches_jax():
     np.testing.assert_allclose(kps.numpy(), np.asarray(jkps), atol=1e-5)
 
 
-@pytest.mark.parametrize("key", ["phase_head", "subpixel", "s2d_stem",
-                                 "bn_groups"])
-def test_unported_variants_raise(key):
-    with pytest.raises(NotImplementedError):
-        build_detector(dict(DET50, **{key: 2 if key == "bn_groups" else True}))
+@pytest.mark.parametrize("key", ["phase_head", "subpixel", "s2d_stem"])
+def test_head_and_stem_variants_compute_the_standard_function(key):
+    """The JAX detector as its build_detector makes it from the same
+    detector_params (phase_head: the phase-layout deconv head, the same
+    function with the same parameters; subpixel and s2d_stem: not read
+    there) against the port's standard head, on the same conditioned
+    weights, forward in eval and in train mode."""
+    params = dict(DET50, num_layers=18, **{key: True})
+    jdet, jvars, tdet, images = conditioned_pair(params, 64, 2, seed=1)
+    assert jdet.phase_head == (key == "phase_head")
+    want = jdet.apply(jvars, jnp.asarray(images), train=False).kps
+    with torch.no_grad():
+        got = tdet(nchw(images)).kps
+    # normalized coordinates, fp32 through 18 conditioned layers
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    (want, _) = jdet.apply(jvars, jnp.asarray(images), train=True,
+                           mutable=["batch_stats"])
+    tdet.train()
+    with torch.no_grad():
+        got = tdet(nchw(images)).kps
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.kps), atol=1e-4)

@@ -152,6 +152,79 @@ def test_link_kernel_matches_plain(dev, dtype, b, c, co, h, w, shift_mean):
     assert ((stats - rstats).abs() <= 1e-5 * mags).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,side", [(256, 16), (512, 8)])
+def test_link_kernel_on_camera_slices_matches_plain(dev, dtype, c, side):
+    """Per-camera BatchNorm: the link on each camera's slice of a
+    channels-last (128, C, H, W) batch, a view at an offset of 32 images,
+    with that camera's scale and shift."""
+    x, wt, _, _ = _link_case(dev, 128, c, c, side, side, dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for g, xs in enumerate(x.chunk(4)):
+        assert xs.is_contiguous(memory_format=torch.channels_last)
+        offset = g * xs.numel() * x.element_size()
+        assert xs.data_ptr() == x.data_ptr() + offset
+        scale = torch.rand(c, generator=gen, device=dev) + 0.5
+        shift = torch.randn(c, generator=gen, device=dev) * 0.1
+        y, stats = fused_bn_relu_conv(xs, wt, scale, shift)
+        ry, rstats = bn_relu_conv_plain(xs, wt, scale, shift)
+        yf = ry.float()
+        # the bounds of test_link_kernel_matches_plain
+        tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * yf.abs().max()
+        torch.testing.assert_close(y.float(), yf, rtol=0, atol=tol.item())
+        # stats: each y is a fp32 sum of 9 * Cin products, accumulated in
+        # another order (bf16: by wgmma), then summed over the pixels; the
+        # error is relative to the magnitude of the products summed
+        # (conv(|a|, |w|)), which at 512 channels is where the cancelling
+        # sums of y leave the error, not relative to |y|
+        a = torch.relu(xs.float() * scale.view(1, -1, 1, 1)
+                       + shift.view(1, -1, 1, 1)).to(dtype).float()
+        t = torch.nn.functional.conv2d(a, wt.float().abs(), padding=1)
+        mags = torch.stack([t.sum(dim=(0, 2, 3)),
+                            (2 * yf.abs() * t).sum(dim=(0, 2, 3))])
+        assert ((stats - rstats).abs() <= 1e-5 * mags).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_bottleneck_on_card_matches_plain_grouped_path(dev, dtype):
+    """A train-mode Bottleneck with 4 camera groups: the link launched once
+    per camera slice, output and running statistics as the plain grouped
+    path's (BatchNorm per slice, cuDNN's conv) on the same input."""
+    import copy
+
+    from x_as_supervision_tpu_torch.models.resnet import (
+        Bottleneck,
+        set_bn_groups,
+    )
+
+    block = Bottleneck(1024, 256)
+    weights.init_weights(block, 0)
+    set_bn_groups(block, 4)
+    block = block.to(dev).train()
+    plain = copy.deepcopy(block)
+    plain.fused_link = False
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((128, 1024, 16, 16), generator=gen, device=dev).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    before = fused_bn_relu_conv.launches
+    with torch.no_grad():
+        y = block(x).float()
+        torch.cuda.synchronize()
+        assert fused_bn_relu_conv.launches - before == 4
+        ry = plain(x).float()
+    # fp32: convs and per-camera statistics summed in other orders; bf16:
+    # the paths round activations to bf16 at other points, through two
+    # normalizations
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -5
+    assert (y - ry).abs().max() <= tol * ry.abs().max()
+    want = plain.state_dict()
+    for k, v in block.state_dict().items():
+        if "running" in k:
+            assert ((v - want[k]).abs() <= 1e-2 * (want[k].abs() + 1e-3)
+                    ).all(), k
+
+
 def _bwd_case(dev, shape, dtype):
     b, k, d, h, w = shape
     gen = torch.Generator(device=dev).manual_seed(2)

@@ -29,6 +29,14 @@ def to_numpy_tree(tree):
 
 
 
+def smpl_from_jax(jmodel, device=None):
+    """A JAX SmplModel's arrays carried into the port's SmplModel."""
+    from x_as_supervision_tpu_torch.models.smpl import smpl_from_arrays
+
+    arrays = {k: np.asarray(v) for k, v in jmodel._asdict().items()}
+    return smpl_from_arrays(arrays, device)
+
+
 def conditioned_pair(det_params: dict, size: int, batch: int, seed: int):
     """A JAX detector initialized by flax, carried into the port through
     weights.py, conditioned there (weights.condition_for_eval on seeded

@@ -11,9 +11,13 @@ Given an ``outputs`` dict, both phases fill it with the JAX package's
 visualization outputs (the trainer's image panels): first sample only,
 detached slices of values the phase computes anyway, plus the world lifts
 of a few keypoints; no extra forward, and no loss, gradient or parameter
-changes. Left out of this slice: the mono-camera path, ``use_aug`` rotation
-augmentation (and so the ``_rot`` outputs) and the remat modes (the port
-keeps every activation).
+changes.
+
+``smpl_disc_params.use_aug`` adds the rotation augmentation: each pose
+turned about z by an angle uniform in [-pi/4, pi/4] (ops/geometry.py:
+rotate_z). Its uniforms are drawn from the phase's generator, or passed in
+as ``rot_u`` (the tests feed the JAX package's draws). Left out: the
+mono-camera path and the remat modes (the port keeps every activation).
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ class GanSpec:
     render_child_ids: tuple
     body_width: float
     disc_sup_dim: int = 3
+    use_aug: bool = False
+    fuse_gan_step: bool = True
     feed_mean: tuple | None = None
     feed_std: tuple | None = None
     feed_rm_bg: bool = False
@@ -69,8 +75,6 @@ class GanSpec:
     @staticmethod
     def from_config(model_params, detector, discriminator, physique):
         disc_params = model_params.get("smpl_disc_params", {})
-        if disc_params.get("use_aug", False):
-            raise NotImplementedError("smpl_disc_params.use_aug is not ported")
         rp, rc = cal_links(model_params["parent_ids"],
                            line_select_ids=model_params.get("line_select_ids"),
                            use_root=False, extension=True)
@@ -81,6 +85,8 @@ class GanSpec:
             render_parent_ids=tuple(rp), render_child_ids=tuple(rc),
             body_width=float(model_params.get("body_width", 3.0)) * 1e-3,
             disc_sup_dim=disc_params.get("disc_sup_dim", 3),
+            use_aug=bool(disc_params.get("use_aug", False)),
+            fuse_gan_step=bool(model_params.get("fuse_gan_step", True)),
         )
 
 
@@ -150,6 +156,15 @@ def _disc(spec: GanSpec, poses, generator):
     return spec.discriminator(poses[..., : spec.disc_sup_dim], generator)
 
 
+def _rotated(poses, generator, rot_u):
+    """The poses (N, K, 3) turned about z by the uniforms `rot_u` (N,), or
+    by uniforms drawn from `generator`."""
+    if rot_u is None:
+        rot_u = torch.rand(poses.shape[0], generator=generator,
+                           device=poses.device)
+    return G.rotate_z(poses, rot_u)
+
+
 def _mono_world(kps):
     """The reference's visualization-only world of normalized patch
     keypoints (JAX: convert_patch_to_world(mono=True, patch=False))."""
@@ -164,11 +179,12 @@ def _first_nhwc(x, i: int, b: int):
 
 
 def generator_forward(spec: GanSpec, batch: dict, generator=None,
-                      outputs: dict | None = None):
+                      outputs: dict | None = None, rot_u=None):
     """The generator-side loss menu, gated by the keys of loss_config as in
     the JAX package. Returns (losses {name: scalar}, the camera stream's
     decode); fills `outputs`, when given, with the visualization outputs.
-    The modules' train/eval modes are the caller's."""
+    The modules' train/eval modes are the caller's. `rot_u`: use_aug's
+    uniforms, one per camera, sample and hypothesis (camera-major)."""
     cams = _cams(spec, batch)
     nc = len(cams)
     cfg = spec.loss_config
@@ -233,10 +249,18 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
         # detached: the gradient reaches only the discriminator
         pw = torch.stack([kps_world[c] for c in cams])  # (C, B, H, K, 3)
         pw = (pw - pw[:, :, :, :1, :]) / 1000.0
-        flat = pw.reshape(nc * b * nh, *pw.shape[3:]).detach()
-        logits = _disc(spec, flat, generator).reshape(nc * b, nh, 1)
-        losses["smpl_gen"] = (L.compute_disc_loss(logits, None) * nc
-                              * cfg["smpl_gen_loss"]["weight"])
+        flat = pw.reshape(nc * b * nh, *pw.shape[3:])
+        logits = _disc(spec, flat.detach(), generator).reshape(nc * b, nh, 1)
+        if not spec.use_aug:
+            loss_gen = L.compute_disc_loss(logits, None) * nc
+        else:
+            # the rotated branch is not detached, as in the JAX package: it
+            # alone carries a gradient into the detector
+            rot = _rotated(flat, generator, rot_u)
+            logits_rot = _disc(spec, rot, generator).reshape(nc * b, nh, 1)
+            loss_gen = (L.compute_disc_loss(logits, None) * nc * 0.7
+                        + L.compute_disc_loss(logits_rot, None) * nc * 0.3)
+        losses["smpl_gen"] = loss_gen * cfg["smpl_gen_loss"]["weight"]
 
     if "smpl_pseudo_img_loss" in cfg:
         decode_p = spec.detector(_nchw(_stack(batch, cams, "pseudo_img")))
@@ -295,9 +319,11 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
 
 def discriminator_forward(spec: GanSpec, batch: dict, generator=None,
                           precomputed_decode=None,
-                          outputs: dict | None = None):
+                          outputs: dict | None = None, rot_u=None):
     """Discriminator-side LSGAN loss: real = the pseudo SMPL joints of the
-    data stream, fake = the detector's predictions (no gradient). With
+    data stream, fake = the detector's predictions (no gradient), and under
+    use_aug also fake = the pseudo joints' (visualization) world lift
+    rotated (`rot_u`: its uniforms, one per camera and sample). With
     ``precomputed_decode`` (the fused step) the generator phase's camera
     forward is reused; else the detector runs once more without gradient.
     Fills `outputs`, when given, with the visualization outputs."""
@@ -326,5 +352,16 @@ def discriminator_forward(spec: GanSpec, batch: dict, generator=None,
             for cam in cams:
                 outputs[f"pose_smpl_3d_cam_{cam}"] = _mono_world(
                     batch[f"cam_{cam}_pseudo_joints"][:1])
-    loss = L.compute_disc_loss(pred_logits, smpl_logits) * nc
+    if not spec.use_aug:
+        loss = L.compute_disc_loss(pred_logits, smpl_logits) * nc
+    else:
+        rot = _rotated(_mono_world(smpl), generator, rot_u)
+        if outputs is not None:
+            b = cb // nc
+            for i, cam in enumerate(cams):
+                outputs[f"pose_smpl_3d_cam_{cam}_rot"] = rot[i * b:i * b + 1
+                                                             ].detach()
+        rot_logits = _disc(spec, rot, generator)
+        loss = (L.compute_disc_loss(pred_logits, smpl_logits) * nc * 0.6
+                + L.compute_disc_loss(rot_logits, None) * nc * 0.4)
     return loss * spec.loss_config["smpl_disc_loss"]["weight"]

@@ -12,10 +12,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import integral
-from .resnet import ResPoseNet
-
-# Opt-in variants of the JAX detector that the port does not have yet.
-_NOT_PORTED = ("phase_head", "subpixel", "s2d_stem")
+from .resnet import ResPoseNet, set_bn_groups
 
 
 class KPDetector3D(nn.Module):
@@ -58,14 +55,13 @@ def build_detector(detector_params: dict, dtype=torch.float32,
 
     Parameters and BatchNorm statistics are fp32; the forward computes in
     `dtype` (models/resnet.py says where it is cast in), as the JAX
-    package's ``param_dtype=float32, dtype=dtype``. The JAX opt-ins
-    ``use_pallas`` and ``fuse_bn`` select nothing here: on the card the port
-    always runs its kernels."""
-    for key in _NOT_PORTED:
-        if detector_params.get(key):
-            raise NotImplementedError(f"detector_params.{key} is not ported")
-    if int(detector_params.get("bn_groups", 1)) != 1:
-        raise NotImplementedError("detector_params.bn_groups is not ported")
+    package's ``param_dtype=float32, dtype=dtype``. ``bn_groups`` gives
+    every BatchNorm per-camera train statistics (models/resnet.py). The JAX
+    opt-ins ``use_pallas`` and ``fuse_bn`` select nothing here: on the card
+    the port always runs its kernels. ``phase_head`` (the JAX package's
+    phase-layout deconv head, the same function with the same parameters),
+    ``subpixel`` and ``s2d_stem`` (which its build_detector does not read)
+    run the standard head and stem."""
     common = dict(
         num_kp=detector_params["num_kp"],
         depth_dim=detector_params["depth_dim"],
@@ -79,4 +75,5 @@ def build_detector(detector_params: dict, dtype=torch.float32,
                                 **common)
     else:
         det = KPDetector3D(**common)
+    set_bn_groups(det, detector_params.get("bn_groups", 1))
     return det.train(train)

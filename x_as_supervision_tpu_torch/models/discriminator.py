@@ -1,11 +1,15 @@
-"""The default pose discriminator, ``GCNDiscriminatorDecouple``, ported from
-the JAX package's models/discriminator.py: parallel SAGE streams over joint
-positions and root-padded bone vectors, concatenated into an FFN header.
+"""The pose discriminators, ported from the JAX package's
+models/discriminator.py: the default ``GCNDiscriminatorDecouple`` (parallel
+SAGE streams over joint positions and root-padded bone vectors, concatenated
+into an FFN header), ``GCNSAGEDiscriminator`` (one residual SAGE stack and a
+linear header) and ``GCNDiscriminator`` (the ``simple_gcn`` and ``res_gcn``
+GCN stacks on a per-sample 1/bone-length adjacency).
 
 The skeleton graph is tiny and fixed, so SAGEConv(aggr='mean') is a dense
 (N, N) row-normalized adjacency product: x' = x W_root + rownorm(A) x W_neigh
-+ b. GraphLayerNorm normalizes each sample over its nodes and channels, as
-the JAX package does. Dropout in the header draws from an explicit
++ b, and GCNConv is D^-1/2 A D^-1/2 x W + b with the bias added after the
+aggregation. GraphLayerNorm normalizes each sample over its nodes and
+channels, as the JAX package does. Dropout draws from an explicit
 ``torch.Generator`` passed to ``forward``. Parameters are fp32 and so is the
 forward: the poses it scores are fp32 decode outputs.
 """
@@ -91,6 +95,19 @@ class SAGEResidualBlock(nn.Module):
         return y if self.single_layer else y + x
 
 
+def dropout(x, p: float, training: bool,
+            generator: torch.Generator | None = None):
+    """Inverted dropout (flax's nn.Dropout): each value kept with
+    probability 1 - p and scaled by 1 / (1 - p), the mask drawn from
+    `generator`; the identity outside training or at p = 0."""
+    if not training or p <= 0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class FFNHeader(nn.Module):
     """Linear -> ReLU -> Dropout(p) -> Linear(1)."""
 
@@ -102,12 +119,47 @@ class FFNHeader(nn.Module):
 
     def forward(self, x, generator: torch.Generator | None = None):
         x = F.relu(self.dense0(x))
-        if self.training and self.p_dropout > 0:
-            keep = 1.0 - self.p_dropout
-            mask = torch.rand(x.shape, generator=generator, device=x.device,
-                              dtype=x.dtype) < keep
-            x = torch.where(mask, x / keep, torch.zeros_like(x))
-        return self.dense1(x)
+        return self.dense1(dropout(x, self.p_dropout, self.training,
+                                   generator))
+
+
+class DenseGCNLayer(nn.Module):
+    """GCNConv on a per-sample sym-normalized dense adjacency: the bias is
+    added after the aggregation, A_norm (x W) + b."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.lin = nn.Linear(cin, cout, bias=False)
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x, adj_norm):
+        return torch.einsum("bij,bjc->bic", adj_norm, self.lin(x)) + self.bias
+
+
+def sym_normalize(adj, eps: float = 1e-12):
+    """D^-1/2 A D^-1/2 per sample; a node of degree <= eps gets 0."""
+    deg = adj.sum(dim=-1)
+    inv_sqrt = torch.where(deg > eps, torch.rsqrt(deg.clamp_min(eps)),
+                           torch.zeros_like(deg))
+    return adj * inv_sqrt[..., :, None] * inv_sqrt[..., None, :]
+
+
+class StatelessBN(nn.Module):
+    """Per-channel batch normalization over (batch, node) of (B, N, C) with a
+    learned affine and no running statistics: batch statistics in eval too
+    (the JAX package's _StatelessBN; not nn.BatchNorm1d)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        mean = x.mean(dim=(0, 1), keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=(0, 1), keepdim=True)
+        y = (x - mean) / torch.sqrt(var + self.eps)
+        return y * self.weight + self.bias
 
 
 class GCNDiscriminatorDecouple(nn.Module):
@@ -168,14 +220,139 @@ class GCNDiscriminatorDecouple(nn.Module):
         return self.header(feats, generator)
 
 
+class GCNSAGEDiscriminator(nn.Module):
+    """A residual SAGE stack over the joints and a linear header (no FFN,
+    no dropout)."""
+
+    def __init__(self, parent_ids: Sequence[int], child_ids: Sequence[int],
+                 input_dim: int = 128, hidden_dim: int = 128,
+                 output_dim: int = 128, num_nodes: int = 18,
+                 disc_sup_dim: int = 3, num_layers: int = 2,
+                 use_self_loop: bool = True, use_pe: bool = False):
+        super().__init__()
+        adj = skeleton_adjacency(parent_ids, child_ids, num_nodes,
+                                 1.0 if use_self_loop else 0.0)
+        self.register_buffer("rownorm", torch.from_numpy(
+            adj / adj.sum(axis=1, keepdims=True).clip(1e-12)),
+            persistent=False)
+        cin = disc_sup_dim
+        if use_pe:
+            self.register_buffer("pe", torch.from_numpy(
+                positional_encoding(num_nodes, disc_sup_dim)),
+                persistent=False)
+            cin *= 2
+        else:
+            self.pe = None
+        self.input = nn.Linear(cin, input_dim)
+        self.blocks = nn.ModuleList([
+            SAGEResidualBlock(input_dim if i == 0 else hidden_dim,
+                              hidden_dim, hidden_dim)
+            for i in range(num_layers)])
+        self.final = SAGEResidualBlock(hidden_dim, hidden_dim, output_dim,
+                                       single_layer=True)
+        self.header = nn.Linear(num_nodes * output_dim, 1)
+
+    def forward(self, keypoints, generator: torch.Generator | None = None):
+        """(N, num_nodes, disc_sup_dim) poses -> (N, 1) logits."""
+        x = keypoints
+        if self.pe is not None:
+            x = torch.cat([x, self.pe.expand(x.shape[0], -1, -1)], dim=-1)
+        x = self.input(x)
+        for block in self.blocks:
+            x = block(x, self.rownorm)
+        x = self.final(x, self.rownorm)
+        return self.header(x.reshape(x.shape[0], -1))
+
+
+class GCNDiscriminator(nn.Module):
+    """``simple_gcn`` (two GCN layers) or ``res_gcn`` (a GCN layer, then
+    `num_layers` residual pairs of GCN layers, each followed by the optional
+    StatelessBN, ReLU and dropout 0.5, then an output GCN layer), on the
+    per-sample adjacency with 1/bone-length edge weights, and a linear
+    header. Under ``use_self_loop`` the identity is added twice, as the
+    reference adds it to the weight matrix and again inside GCNConv."""
+
+    def __init__(self, parent_ids: Sequence[int], child_ids: Sequence[int],
+                 variant: str = "res_gcn", input_dim: int = 128,
+                 hidden_dim: int = 128, output_dim: int = 128,
+                 num_nodes: int = 18, disc_sup_dim: int = 3,
+                 num_layers: int = 2, use_self_loop: bool = True,
+                 use_bn: bool = False, p_dropout: float = 0.5):
+        super().__init__()
+        if variant not in ("simple_gcn", "res_gcn"):
+            raise NotImplementedError(f"GCN discriminator variant {variant!r}")
+        self.variant = variant
+        self.num_layers = num_layers
+        self.num_nodes = num_nodes
+        self.parent_ids = list(parent_ids)
+        self.child_ids = list(child_ids)
+        self.use_self_loop = use_self_loop
+        self.p_dropout = p_dropout
+        self.input = nn.Linear(disc_sup_dim, input_dim)
+        if variant == "simple_gcn":
+            dims = [(input_dim, hidden_dim), (hidden_dim, hidden_dim)]
+        else:
+            dims = ([(input_dim, hidden_dim)]
+                    + [(hidden_dim, hidden_dim)] * (2 * num_layers)
+                    + [(hidden_dim, output_dim)])
+        self.gcn = nn.ModuleList([DenseGCNLayer(a, b) for a, b in dims])
+        n_bn = 2 * num_layers if variant == "res_gcn" and use_bn else 0
+        self.bns = nn.ModuleList([StatelessBN(hidden_dim)
+                                  for _ in range(n_bn)])
+        self.header = nn.Linear(num_nodes * dims[-1][1], 1)
+
+    def bn_cancelled_biases(self) -> list[str]:
+        """Names of the GCN biases that a StatelessBN follows: its mean
+        subtraction cancels them, so their gradient is zero up to
+        rounding."""
+        return [f"gcn.{i + 1}.bias" for i in range(len(self.bns))]
+
+    def adjacency(self, keypoints):
+        """(B, N, N) sym-normalized adjacency: 1/bone-length on the skeleton
+        edges, 2 I added under use_self_loop."""
+        b, n = keypoints.shape[0], self.num_nodes
+        diff = keypoints[:, self.parent_ids] - keypoints[:, self.child_ids]
+        inv_len = 1.0 / torch.sqrt((diff ** 2).sum(-1) + 1e-12)
+        adj = keypoints.new_zeros((b, n, n))
+        adj[:, self.parent_ids, self.child_ids] = inv_len
+        adj[:, self.child_ids, self.parent_ids] = inv_len
+        if self.use_self_loop:
+            adj = adj + 2.0 * torch.eye(n, dtype=adj.dtype, device=adj.device)
+        return sym_normalize(adj)
+
+    def forward(self, keypoints, generator: torch.Generator | None = None):
+        """(N, num_nodes, disc_sup_dim) poses -> (N, 1) logits."""
+        adj = self.adjacency(keypoints)
+        x = self.input(keypoints)
+        gcn = iter(self.gcn)
+        x = F.relu(next(gcn)(x, adj))
+        if self.variant == "simple_gcn":
+            x = F.relu(next(gcn)(x, adj))
+        else:
+            bns = iter(self.bns)
+            for _ in range(self.num_layers):
+                res = x
+                y = x
+                for _ in range(2):
+                    y = next(gcn)(y, adj)
+                    if self.bns:
+                        y = next(bns)(y)
+                    y = dropout(F.relu(y), self.p_dropout, self.training,
+                                generator)
+                x = y + res
+            x = F.relu(next(gcn)(x, adj))
+        return self.header(x.reshape(x.shape[0], -1))
+
+
 def build_discriminator(disc_params: dict, parent_ids, child_ids):
-    """The discriminator a config's ``smpl_disc_params`` names; only the
-    decoupled SAGE discriminator is ported."""
+    """The discriminator a config's ``smpl_disc_params`` names, by the JAX
+    package's substring dispatch: a name with "decouple" builds the
+    decoupled SAGE discriminator, with "sage" the SAGE one, any other "gcn"
+    name the GCN one of that variant (an unknown variant raises)."""
     name = disc_params["name"]
-    if "gcn" not in name or "decouple" not in name:
-        raise NotImplementedError(f"discriminator {name!r} is not ported")
-    return GCNDiscriminatorDecouple(
-        parent_ids, child_ids,
+    if "gcn" not in name:
+        raise NotImplementedError(f"discriminator {name!r}")
+    common = dict(
         input_dim=disc_params["input_dim"],
         hidden_dim=disc_params["hidden_dim"],
         output_dim=disc_params["output_dim"],
@@ -183,5 +360,14 @@ def build_discriminator(disc_params: dict, parent_ids, child_ids):
         disc_sup_dim=disc_params.get("disc_sup_dim", 3),
         num_layers=disc_params.get("num_layers", 2),
         use_self_loop=disc_params.get("use_self_loop", True),
-        use_pe=disc_params.get("use_pe", False),
     )
+    if "decouple" in name:
+        return GCNDiscriminatorDecouple(
+            parent_ids, child_ids, use_pe=disc_params.get("use_pe", False),
+            **common)
+    if "sage" in name:
+        return GCNSAGEDiscriminator(
+            parent_ids, child_ids, use_pe=disc_params.get("use_pe", False),
+            **common)
+    return GCNDiscriminator(parent_ids, child_ids, variant=name,
+                            use_bn=disc_params.get("use_bn", False), **common)

@@ -11,7 +11,8 @@ conv runs through ops/conv3x3.py (the CUDA kernels on the card).
 Parameters and BatchNorm statistics are fp32; the input is cast to the
 working type ``dtype`` and each conv casts its weight to it. BatchNorm
 (models/resnet.py:BatchNorm2d) pools its statistics over the whole batch,
-all cameras together, as the JAX package does.
+all cameras together, as the JAX package does, or with ``bn_groups`` takes
+them per camera slice.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv3x3 import channels_last, conv3x3
-from .resnet import BatchNorm2d
+from .resnet import BatchNorm2d, set_bn_groups
 
 
 class Conv3x3(nn.Module):
@@ -56,7 +57,7 @@ def stages(num_features: Sequence[int]) -> list:
 
 class PhysiqueMaskGenerator(nn.Module):
     def __init__(self, num_features: Sequence[int],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bn_groups: int = 1):
         super().__init__()
         self.dtype = dtype
         self.ops = stages(num_features)
@@ -70,6 +71,7 @@ class PhysiqueMaskGenerator(nn.Module):
         convs.append(Conv3x3(cin, 1))
         self.convs = nn.ModuleList(convs)
         self.bns = nn.ModuleList(bns)
+        set_bn_groups(self, bn_groups)
 
     def bn_cancelled_biases(self) -> list[str]:
         """Names of the conv biases that a train-mode BatchNorm follows: its

@@ -26,6 +26,16 @@ two-pass, in train), the link computes relu(y * scale + shift) -> conv3x3
 plus (sum, sumsq) of its output, and bn2 applies its running statistics in
 eval or, in train, the link's (sum, sumsq) through make_stats_fold's
 clamped one-pass variance. Both paths are differentiable.
+
+Per-camera BatchNorm (``set_bn_groups``, the JAX package's ``bn_groups``):
+the cameras are folded into the batch camera-major, and with G groups each
+camera's contiguous slice of the batch gets its own train-mode statistics;
+the running statistics take G sequential momentum updates in camera order,
+as the reference's one forward per camera gives them. Eval uses the running
+statistics, so it is the same either way, and the parameters and buffers
+keep their names. Under G groups the link runs once per camera slice, each
+launch with that camera's folded statistics, returning that camera's
+(sum, sumsq).
 """
 
 from __future__ import annotations
@@ -77,18 +87,44 @@ def update_running_stats(bn: nn.BatchNorm2d, mean, var) -> None:
         bn.running_var.mul_(1.0 - f).add_(var.detach(), alpha=f)
 
 
+def camera_slices(x, groups: int):
+    """The `groups` contiguous camera slices of a camera-major batch."""
+    if x.shape[0] % groups:
+        raise ValueError(f"bn_groups={groups} must divide the camera-major "
+                         f"batch {x.shape[0]}")
+    return x.chunk(groups) if groups > 1 else (x,)
+
+
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's train-mode semantics (see the module
-    docstring); eval is nn.BatchNorm2d's."""
+    docstring), per camera slice under ``groups`` > 1; eval is
+    nn.BatchNorm2d's."""
+
+    groups = 1
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
-        # the biased variance, back from invstd = (var + eps)^-1/2 (fp32)
-        update_running_stats(self, mean, invstd.detach() ** -2 - self.eps)
-        return y
+        ys = []
+        for xs in camera_slices(x, self.groups):
+            y, mean, invstd = torch.native_batch_norm(
+                xs, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            # the biased variance, back from invstd = (var + eps)^-1/2 (fp32)
+            update_running_stats(self, mean, invstd.detach() ** -2 - self.eps)
+            ys.append(y)
+        return _cat(ys)
+
+
+def set_bn_groups(module: nn.Module, groups: int) -> None:
+    """Per-camera statistics in every BatchNorm2d of `module`: `groups`
+    camera slices of each train-mode batch (1: pooled)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.groups = int(groups)
 
 
 def _bn(c: int) -> BatchNorm2d:
@@ -177,9 +213,13 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         y = self.conv1(x)
         if self.fused_link and self.training:
-            y, stats = fused_link(y, self.conv2.weight,
-                                  *fold_batch_stats(self.bn1, y))
-            y = apply_stats(self.bn2, y, stats)
+            # one launch per camera slice, each with its own statistics
+            parts = []
+            for ys in camera_slices(y, self.bn1.groups):
+                ys, stats = fused_link(ys, self.conv2.weight,
+                                       *fold_batch_stats(self.bn1, ys))
+                parts.append(apply_stats(self.bn2, ys, stats))
+            y = _cat(parts)
         elif self.fused_link:
             y, _ = fused_link(y, self.conv2.weight,
                               *fold_running_stats(self.bn1))

@@ -1,18 +1,22 @@
 """Model factory: config -> GanSpec (detector, discriminator, physique net),
-ported from the JAX package's train/factory.py; and the flagship
-configuration, the port's own copy of ``__graft_entry__._flagship_config``.
+ported from the JAX package's train/factory.py, with its load_smpl_assets;
+and the flagship configuration, the port's own copy of
+``__graft_entry__._flagship_config``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
+import numpy as np
 import torch
 
 from ..models.composed import GanSpec, cal_links
 from ..models.detector import build_detector
 from ..models.discriminator import build_discriminator
 from ..models.physique import PhysiqueMaskGenerator
+from ..models.smpl import load_smpl_npz
 
 
 def flagship_config(tiny: bool = False) -> dict:
@@ -76,11 +80,16 @@ def build_gan_spec(config: dict, dtype=torch.float32) -> GanSpec:
     detector and physique net compute in `dtype`, the discriminator in
     fp32) and its static settings. ``remat`` and the physique ``pallas``
     flag select nothing here: the port keeps every activation and always
-    runs its kernels on the card."""
+    runs its kernels on the card. ``per_camera_bn`` gives the detector's and
+    the physique net's BatchNorms one group of train statistics per
+    camera."""
     mp = config["model_params"]
-    if mp.get("per_camera_bn", False):
-        raise NotImplementedError("model_params.per_camera_bn is not ported")
-    detector = build_detector(mp["detector_params"], dtype, train=True)
+    bn_groups = (len(mp.get("cam_id_list", [0]))
+                 if mp.get("per_camera_bn", False) else 1)
+    det_params = dict(mp["detector_params"])
+    if bn_groups > 1:
+        det_params["bn_groups"] = bn_groups
+    detector = build_detector(det_params, dtype, train=True)
 
     discriminator = None
     if "smpl_disc_params" in mp:
@@ -94,7 +103,8 @@ def build_gan_spec(config: dict, dtype=torch.float32) -> GanSpec:
     physique = None
     if "physique_mask_generator_params" in mp:
         physique = PhysiqueMaskGenerator(
-            mp["physique_mask_generator_params"]["layers"], dtype).train()
+            mp["physique_mask_generator_params"]["layers"], dtype,
+            bn_groups).train()
 
     spec = GanSpec.from_config(mp, detector, discriminator, physique)
     dp = config.get("dataset_params", {})
@@ -104,3 +114,22 @@ def build_gan_spec(config: dict, dtype=torch.float32) -> GanSpec:
         updates.update(feed_mean=tuple(float(v) for v in di["mean"]),
                        feed_std=tuple(float(v) for v in di["std"]))
     return dataclasses.replace(spec, **updates)
+
+
+def load_smpl_assets(config: dict, device=None):
+    """(SmplModel, h36m_regressor (17, V) fp32 tensor) when
+    ``model_params.smpl_layer_params`` is set and its files
+    (``smpl_neutral.npz``, ``J_regressor_h36m.npy`` under ``model_path``)
+    exist, each None where absent: training reads SMPL only through the
+    pre-rendered pseudo stream, so it runs without them."""
+    mp = config["model_params"]
+    if "smpl_layer_params" not in mp:
+        return None, None
+    root = mp["smpl_layer_params"]["model_path"]
+    npz = os.path.join(root, "smpl_neutral.npz")
+    reg = os.path.join(root, "J_regressor_h36m.npy")
+    model = load_smpl_npz(npz, device) if os.path.exists(npz) else None
+    regressor = (torch.as_tensor(np.load(reg).astype(np.float32),
+                                 device=device)
+                 if os.path.exists(reg) else None)
+    return model, regressor

@@ -18,7 +18,8 @@ update, with
 When both updates run in one iteration (the fused step) the discriminator
 phase reuses the generator phase's camera forward, and the generator's
 gradients are taken at the pre-update discriminator parameters, as in the
-JAX package.
+JAX package; with ``model_params.fuse_gan_step`` false the iteration is a
+discriminator-only step, then a generator-only one, as there.
 """
 
 from __future__ import annotations
@@ -114,8 +115,10 @@ def _grads(loss, params):
                    params)
 
 
-def _gen_losses(state: TrainState, batch, generator, outputs=None):
-    losses, decode = generator_forward(state.spec, batch, generator, outputs)
+def _gen_losses(state: TrainState, batch, generator, outputs=None,
+                rot_u=None):
+    losses, decode = generator_forward(state.spec, batch, generator, outputs,
+                                       rot_u)
     total = sum(v.mean() for v in losses.values())
     grads = _grads(total, state.gen_params + state.disc_params)
     n = len(state.gen_params)
@@ -146,27 +149,29 @@ def _update_gen(state: TrainState, grads) -> None:
 def train_step(state: TrainState, batch: dict,
                generator: torch.Generator | None = None,
                do_disc: bool = True, do_gen: bool = True,
-               with_outputs: bool = False):
+               with_outputs: bool = False, rot_draws: dict | None = None):
     """One iteration on `batch` (tensors on the modules' device); returns
     the scalar metrics (loss_total, loss/<name>, loss_disc) as tensors, and
     with `with_outputs` (metrics, outputs): the visualization outputs of
     both phases (models/composed.py), the discriminator's first, as the
-    JAX package merges them. `generator` drives the discriminator header's
-    dropout."""
+    JAX package merges them. `generator` drives the discriminators'
+    dropout and use_aug's rotations; `rot_draws` ({"gen": u, "disc": u})
+    gives the rotations' uniforms instead (models/composed.py)."""
     spec = state.spec
     has_disc = spec.discriminator is not None
     batch = preprocess_batch(batch, spec)
+    rot_gen, rot_disc = ((rot_draws or {}).get(k) for k in ("gen", "disc"))
     metrics: dict = {}
     d_out = {} if with_outputs else None
     g_out = {} if with_outputs else None
-    if do_disc and do_gen and has_disc:
+    if do_disc and do_gen and has_disc and spec.fuse_gan_step:
         # fused: generator gradients at the pre-update discriminator, then
         # the discriminator phase on the same camera forward
-        total, losses, decode, g_gen, g_disc = _gen_losses(state, batch,
-                                                           generator, g_out)
+        total, losses, decode, g_gen, g_disc = _gen_losses(
+            state, batch, generator, g_out, rot_gen)
         loss_disc = discriminator_forward(spec, batch, generator,
                                           precomputed_decode=decode,
-                                          outputs=d_out)
+                                          outputs=d_out, rot_u=rot_disc)
         _update_disc(state, _grads(loss_disc, state.disc_params))
         _update_gen(state, g_gen)
         state.pending_disc_grads = g_disc
@@ -174,14 +179,14 @@ def train_step(state: TrainState, batch: dict,
     else:
         if do_disc and has_disc:
             loss_disc = discriminator_forward(spec, batch, generator,
-                                              outputs=d_out)
+                                              outputs=d_out, rot_u=rot_disc)
             _update_disc(state, _grads(loss_disc, state.disc_params))
             state.pending_disc_grads = [torch.zeros_like(p)
                                         for p in state.disc_params]
             metrics["loss_disc"] = loss_disc.detach()
         if do_gen:
-            total, losses, _, g_gen, g_disc = _gen_losses(state, batch,
-                                                          generator, g_out)
+            total, losses, _, g_gen, g_disc = _gen_losses(
+                state, batch, generator, g_out, rot_gen)
             _update_gen(state, g_gen)
             state.pending_disc_grads = [
                 c + g for c, g in zip(state.pending_disc_grads, g_disc)]

@@ -19,11 +19,19 @@ kernel (in, out) is a Linear weight (out, in) transposed.
 
 The physique net's flax tree is ``Conv_i`` (kernel, bias) and
 ``_BN_i/BatchNorm_0``; the port's is ``convs.i`` and ``bns.i``. The
-discriminator's is ``{joint,bone}_input``, ``{joint,bone}_block<i>`` and
-``{joint,bone}_final`` (``DenseSAGE_j/{lin_neigh,lin_root}``,
-``GraphLayerNorm_j``) and ``header/Dense_{0,1}``; the port's is
-``{tag}_input``, ``{tag}_blocks.i.{sage,norm}.j``, ``{tag}_final.{sage,norm}.0``
-and ``header.dense{0,1}``.
+discriminators':
+
+* decoupled: ``{joint,bone}_input``, ``{joint,bone}_block<i>`` and
+  ``{joint,bone}_final`` (``DenseSAGE_j/{lin_neigh,lin_root}``,
+  ``GraphLayerNorm_j``) and ``header/Dense_{0,1}``; the port's
+  ``{tag}_input``, ``{tag}_blocks.i.{sage,norm}.j``,
+  ``{tag}_final.{sage,norm}.0`` and ``header.dense{0,1}``;
+* SAGE: ``input``, ``block<i>``, ``final`` (as above) and ``header``; the
+  port's ``input``, ``blocks.i``, ``final`` and ``header``;
+* GCN: ``input``, ``DenseGCNLayer_k`` (``Dense_0/kernel`` and ``bias``),
+  ``_StatelessBN_k`` (``scale``, ``bias``) and ``header``; the port's
+  ``input``, ``gcn.k.{lin.weight,bias}``, ``bns.k.{weight,bias}`` and
+  ``header``.
 """
 
 from __future__ import annotations
@@ -137,7 +145,8 @@ def _dense(sd: dict, prefix: str, p: dict) -> None:
 
 
 def discriminator_state_dict(params: dict) -> dict:
-    """JAX GCNDiscriminatorDecouple params -> the port's state_dict."""
+    """JAX discriminator params (any of the three) -> the port's
+    state_dict."""
     sd: dict = {}
 
     def block(prefix: str, p: dict) -> None:
@@ -151,15 +160,33 @@ def discriminator_state_dict(params: dict) -> dict:
             sd[f"{prefix}.norm.{j}.bias"] = _t(norm["bias"])
             j += 1
 
-    for tag in ("joint", "bone"):
-        _dense(sd, f"{tag}_input", params[f"{tag}_input"])
+    if "DenseGCNLayer_0" in params:  # GCNDiscriminator
+        k = 0
+        while f"DenseGCNLayer_{k}" in params:
+            layer = params[f"DenseGCNLayer_{k}"]
+            _dense(sd, f"gcn.{k}.lin", layer["Dense_0"])
+            sd[f"gcn.{k}.bias"] = _t(layer["bias"])
+            k += 1
+        k = 0
+        while f"_StatelessBN_{k}" in params:
+            sd[f"bns.{k}.weight"] = _t(params[f"_StatelessBN_{k}"]["scale"])
+            sd[f"bns.{k}.bias"] = _t(params[f"_StatelessBN_{k}"]["bias"])
+            k += 1
+    for tag in ("joint_", "bone_", ""):
+        if f"{tag}input" not in params:
+            continue
+        _dense(sd, f"{tag}input", params[f"{tag}input"])
         i = 0
-        while f"{tag}_block{i}" in params:
-            block(f"{tag}_blocks.{i}", params[f"{tag}_block{i}"])
+        while f"{tag}block{i}" in params:
+            block(f"{tag}blocks.{i}", params[f"{tag}block{i}"])
             i += 1
-        block(f"{tag}_final", params[f"{tag}_final"])
-    _dense(sd, "header.dense0", params["header"]["Dense_0"])
-    _dense(sd, "header.dense1", params["header"]["Dense_1"])
+        if f"{tag}final" in params:
+            block(f"{tag}final", params[f"{tag}final"])
+    if "Dense_0" in params["header"]:  # the decoupled FFN header
+        _dense(sd, "header.dense0", params["header"]["Dense_0"])
+        _dense(sd, "header.dense1", params["header"]["Dense_1"])
+    else:
+        _dense(sd, "header", params["header"])
     return sd
 
 
