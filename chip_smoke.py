@@ -122,11 +122,44 @@ Phases, each of which fails the run (nonzero exit, no result line):
    flagship's dataset_params) through the train CLI for one epoch (4
    steps, the launches per step above) to 00000_ckpt, restored bitwise,
    and the eval CLI in best mode (per batch decode 4, link 28: eval uses
-   the running statistics).
+   the running statistics);
+12. mono: the mono / 2D path. First the kernels at the mono step's own
+   shapes, fp32 with TF32 off and bf16, against their plain versions with
+   the kernel phase's bounds: the decode backward at (32, 1152, 64, 64),
+   the physique conv3x3 at every shape of CONV_SHAPES on 32 masks, the
+   link's train-mode gradient on whole batches of 32 at 256@16^2 and
+   512@8^2 (the forwards at batch 32 are the kernel phase's serving
+   cases). A TikTok fixture in the dataset's layout
+   (x_as_supervision_tpu_torch/checks.py:write_mini_tiktok: one training
+   video of 136 1080 x 604 PNG frames and masks, 96 samples after the
+   dataset's 20 / 20 trim), a 128-image 256^2 SURREAL pseudo stream and an
+   MPII fixture (write_mini_mpii: 64 JPEGs at 1280 x 720, SAM-style masks,
+   annot/mpii_valid.json, mpii_gt_valid.mat). TikTok_Multi_S1 (its JSON
+   copy) trained through ``python -m x_as_supervision_tpu_torch.train2d3d``
+   for one epoch, 3 steps of 1 camera x 32 at 256^2 in bf16, to
+   00000_ckpt: CUDA events around each step, images per second, peak
+   memory, the loader's ms per batch and each step's wait on its queue,
+   every loss finite, the launches per step (counts set to 0 just before
+   the CLI: those of phase 6). That checkpoint scored through
+   ``python -m x_as_supervision_tpu_torch.eval2d`` with MPII_2D (2 batches
+   of 32, bf16, through PoseEstimator): eval2d_result.txt with a PCKh in
+   [0, 100], the launches per batch (decode 1, link 7, all on wgmma), the
+   ms per batch between CUDA events around the estimator's call (its
+   copies to and from the card included) and the host's share. PoseEstimator(checkpoint_path=...) on 32 of the crops:
+   keypoints equal to eval2d's forward (z exactly, x and y within 1e-5:
+   the decode forward's atomic x/y sums are not bit-reproducible), one
+   decode and seven links. One
+   fp32 step of TikTok_Multi_S1 reduced (ResNet-50 at 64^2, D = 16, batch
+   4 of SyntheticMonoDataset) card against CPU with phase 7's bounds; the
+   eval2d forward of the checkpoint (conditioned on the crops, as the
+   serve phase conditions its weights) in fp32 on 8 crops, card against
+   CPU: normalized keypoints 1e-3, the MPII predictions in original pixels
+   1e-2 px, both modes.
 
 Earlier lines carry the findings as JSON; the line before the last lists the
-kernels (launches per training step, per serving forward, per eval batch
-and per step on the per-camera path), and the last line is
+kernels (launches per training step, per serving forward, per eval batch,
+per step on the per-camera path, per mono step and per eval2d batch), and
+the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -229,6 +262,32 @@ CAMERAS = TRAIN_IMAGES // TRAIN_BATCH
 # the SMPL chain: SMPL's own size, batch 128
 SMPL_VERTS = 6890
 SMPL_BATCH = 128
+
+# the mono / 2D path: TikTok_Multi_S1 and MPII_2D (their JSON copies) at
+# full width; a TikTok fixture of one training video of 1080 x 604 frames,
+# 136 of them: 96 after the dataset's 20 / 20 trim, 3 steps of 32; a
+# 128-image 256^2 SURREAL pseudo stream; 64 MPII JPEGs at 1280 x 720
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "x_as_supervision_tpu_torch", "configs")
+TIKTOK_CONFIG = os.path.join(CONFIG_DIR, "TikTok_Multi_S1.json")
+MPII_CONFIG = os.path.join(CONFIG_DIR, "MPII_2D.json")
+MONO_FRAMES = 136
+MONO_FRAME_HW = (1080, 604)
+MONO_PSEUDO = 128
+MONO_STEPS = 3
+MPII_IMAGES = 64
+MPII_HW = (720, 1280)
+# the fp32 checks of the eval2d forward: this many of the MPII crops
+MONO_FP32_IMAGES = 8
+# per mono step: the flagship step's launches at one camera x 32 (two
+# detector forwards, the physique net, their gradients)
+MONO_LAUNCHES = TRAIN_LAUNCHES
+MONO_PATH_LAUNCHES = TRAIN_PATH_LAUNCHES
+# per eval2d batch of 32: one detector forward
+EVAL2D_LAUNCHES = {"integral_marginals": 1, "integral_marginals_bwd": 0,
+                   "conv_bn_link": 7, "conv3x3": 0}
+MONO_LOSSES = ("physique_recons", "reconstruction", "smpl_gen",
+               "smpl_pseudo_img")
 
 KERNELS = {
     "integral_marginals": dict(
@@ -1058,9 +1117,10 @@ def phase_train_parity() -> dict:
 
 
 def _train_parity(cfg: dict, phase: str, config: str,
-                  rot_draws: dict | None = None) -> dict:
+                  rot_draws: dict | None = None, batch=None) -> dict:
     """phase_train_parity's step and checks for `cfg`; `rot_draws` (CPU
-    tensors) are use_aug's uniforms, the same on both sides."""
+    tensors) are use_aug's uniforms, the same on both sides; `batch` (numpy)
+    replaces the synthetic two-camera batch."""
     import torch
 
     from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
@@ -1084,8 +1144,9 @@ def _train_parity(cfg: dict, phase: str, config: str,
 
     lr = float(cfg["train_params"]["lr_kp_detector"])
     b = cfg["train_params"]["batch_size"]
-    batch = SyntheticPoseDataset(num_samples=b, cam_id_list=(0, 1),
-                                 patch_size=64, seed=SEED).batch(0, b)
+    if batch is None:
+        batch = SyntheticPoseDataset(num_samples=b, cam_id_list=(0, 1),
+                                     patch_size=64, seed=SEED).batch(0, b)
     cpu_spec, cpu_state = _gan(cfg, torch.float32, "cpu", SEED)
     card_spec, card_state = _gan(cfg, torch.float32, "cuda", SEED)
     # a random-weight ResNet-50 in train mode at 64^2 (BatchNorm over 16
@@ -1558,15 +1619,19 @@ def phase_real_data(card: str) -> dict:
     return record
 
 
-def _timed_train_cli(cfg_path: str, log_dir: str):
-    """The train CLI on `cfg_path`, timed from outside: how long each step
-    waits on the loader's queue, and CUDA events around each train_step.
-    Returns the Trainer and the run's record."""
+def _timed_train_cli(cfg_path: str, log_dir: str, train_main=None):
+    """The train CLI (or `train_main`, another CLI's main) on `cfg_path`,
+    timed from outside: how long each step waits on the loader's queue, and
+    CUDA events around each train_step. Returns the Trainer and the run's
+    record."""
     import torch
 
     from x_as_supervision_tpu_torch.data.loader import BatchLoader
     from x_as_supervision_tpu_torch.train import trainer as trainer_mod
-    from x_as_supervision_tpu_torch.train.__main__ import main as train_main
+
+    if train_main is None:
+        from x_as_supervision_tpu_torch.train.__main__ import main as \
+            train_main
 
     waits, events = [], []
     epoch_fn, step_fn = BatchLoader.epoch, trainer_mod.train_step
@@ -2263,6 +2328,297 @@ def phase_variants() -> dict:
     return record
 
 
+class _FirstN:
+    """The first `n` samples of a dataset with ``batch(start, size)``."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self):
+        return self.n
+
+    def batch(self, start: int, size: int) -> dict:
+        return self.dataset.batch(start, size)
+
+
+def _mono_parity_config() -> dict:
+    """TikTok_Multi_S1 reduced for the card-vs-CPU step: ResNet-50 at 64^2,
+    D = 16, batch 4 (phase 7's population per BatchNorm statistic)."""
+    from x_as_supervision_tpu_torch.config import load_config
+
+    cfg = load_config(TIKTOK_CONFIG)
+    tp = cfg["train_params"]
+    cfg["model_params"]["detector_params"]["depth_dim"] = 16
+    tp["patch_width"] = tp["patch_height"] = 64
+    tp["batch_size"] = 2 * PARITY_BATCH
+    return cfg
+
+
+def _mono_eval_parity(cfg: dict, path: str, dataset) -> dict:
+    """The eval2d forward in fp32 (TF32 off) on the card and on the CPU from
+    the mono checkpoint, conditioned on the crops (weights.
+    condition_for_eval), on MONO_FP32_IMAGES MPII crops: normalized
+    keypoints within 1e-3, the inverse-affine MPII predictions within 1e-2
+    px, in both modes."""
+    import torch
+
+    from x_as_supervision_tpu_torch import weights
+    from x_as_supervision_tpu_torch.eval2d import evaluate_pckh
+    from x_as_supervision_tpu_torch.models.detector import build_detector
+    from x_as_supervision_tpu_torch.train import checkpoint as ckpt
+
+    few = _FirstN(dataset, MONO_FP32_IMAGES)
+    imgs = few.batch(0, MONO_FP32_IMAGES)["cam_mono_img"]
+    det = build_detector(cfg["model_params"]["detector_params"])
+    det.load_state_dict(ckpt.restore_detector(path))
+    weights.condition_for_eval(
+        det, torch.from_numpy(imgs).permute(0, 3, 1, 2).contiguous())
+    state = det.state_dict()
+    kps, fwd = {}, {}
+    for dev in ("cuda", "cpu"):
+        d = build_detector(cfg["model_params"]["detector_params"])
+        d.load_state_dict(state)
+        d = d.to(dev).eval()
+
+        @torch.inference_mode()
+        def forward(x, d=d, dev=dev):
+            out = d(torch.as_tensor(x).to(dev).permute(0, 3, 1, 2)).kps
+            kps[dev] = out.float().cpu().numpy()
+            return kps[dev]
+
+        fwd[dev] = forward
+    record = {}
+    patch = float(cfg["train_params"]["patch_width"])
+    set_tf32(False)
+    try:
+        for mode in EVAL_MODES:
+            pts, pckh = {}, {}
+            for dev in ("cuda", "cpu"):
+                pts[dev] = []
+                pckh[dev] = evaluate_pckh(few, fwd[dev], patch,
+                                          MONO_FP32_IMAGES, mode, pts[dev])
+            kps_err = float(np.abs(kps["cuda"] - kps["cpu"]).max())
+            px_err = float(np.abs(pts["cuda"][0][0] - pts["cpu"][0][0]).max())
+            # normalized coordinates: the serve phase's bound; original
+            # pixels (crops of ~600 px to 256^2): 1e-2 px
+            check(kps_err <= 1e-3,
+                  f"mono eval2d fp32 {mode}: kps off by {kps_err}")
+            check(px_err <= 1e-2,
+                  f"mono eval2d fp32 {mode}: MPII predictions off by "
+                  f"{px_err} px")
+            record[mode] = dict(kps_max_err=kps_err, px_max_err=px_err,
+                                pckh_card=pckh["cuda"], pckh_cpu=pckh["cpu"])
+    finally:
+        set_tf32(True)
+    return record
+
+
+def _mono_kernel_cases() -> list[dict]:
+    """The kernels at the mono step's shapes (one camera x 32) that the
+    kernel phase checks only at the flagship's 128: the decode backward,
+    every physique conv, the link's train-mode gradient; fp32 with TF32 off,
+    and bf16."""
+    import torch
+
+    cases = []
+    set_tf32(False)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append(_marginals_bwd_case(dtype, TRAIN_BATCH))
+            for cin, cout, side, stride in CONV_SHAPES:
+                cases.append(_conv_case(dtype, TRAIN_BATCH, cin, cout, side,
+                                        stride))
+            for c, side, _ in LINK_SHAPES:
+                cases.append(_link_grad_case(dtype, TRAIN_BATCH, c, side))
+            torch.cuda.synchronize()
+    finally:
+        set_tf32(True)
+    for case in cases:
+        emit(phase="mono_kernel", **case)
+    return cases
+
+
+def phase_mono(card: str) -> dict:
+    """The mono / 2D path on the card (see the module docstring, phase
+    12). `card`: nvidia-smi's name and power limit, for the record."""
+    import tempfile
+
+    import torch
+
+    from x_as_supervision_tpu_torch import checks
+    from x_as_supervision_tpu_torch.config import load_config
+    from x_as_supervision_tpu_torch.data.synthetic import SyntheticMonoDataset
+    from x_as_supervision_tpu_torch.eval2d import main as eval2d_main
+    from x_as_supervision_tpu_torch.ops.conv_bn import fused_bn_relu_conv
+    from x_as_supervision_tpu_torch.ops.integral_kernel import (
+        integral_marginals)
+    from x_as_supervision_tpu_torch.serve import PoseEstimator
+    from x_as_supervision_tpu_torch.train2d3d import main as train2d3d_main
+
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        raise SmokeFailure("mono: cv2 is not installed; the TikTok and MPII "
+                           "datasets read their images with it") from None
+
+    kernel_cases = _mono_kernel_cases()
+
+    with tempfile.TemporaryDirectory(prefix="xas_mono_") as root:
+        t0 = time.perf_counter()
+        tiktok = checks.write_mini_tiktok(root, n_frames=MONO_FRAMES,
+                                          size_hw=MONO_FRAME_HW, seed=SEED)
+        pseudo = checks.write_surreal_pseudo(
+            os.path.join(root, "surreal_h36m_pose"), MONO_PSEUDO,
+            seed=SEED + 1, size=PATCH)
+        mpii_path, mpii_masks = checks.write_mini_mpii(
+            root, n_images=MPII_IMAGES, size_hw=MPII_HW, seed=SEED + 2)
+        fixture_s = time.perf_counter() - t0
+
+        with open(TIKTOK_CONFIG) as f:
+            cfg = json.load(f)
+        cfg["dataset_params"]["dataset"]["path"] = tiktok
+        cfg["dataset_params"]["smpl_pseudo_img"]["data_path"] = pseudo
+        cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
+        cfg_path = os.path.join(root, "TikTok_Multi_S1.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        with open(MPII_CONFIG) as f:
+            mcfg = json.load(f)
+        mcfg["dataset_params"]["dataset"].update(path=mpii_path,
+                                                 mask_path=mpii_masks)
+        mcfg_path = os.path.join(root, "MPII_2D.json")
+        with open(mcfg_path, "w") as f:
+            json.dump(mcfg, f)
+
+        # train2d3d: one epoch of 3 steps of 32, bf16
+        log_dir = os.path.join(root, "log")
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        trainer, run = _timed_train_cli(cfg_path, log_dir, train2d3d_main)
+        what = "mono train2d3d CLI"
+        dataset = trainer.dataset
+        check(type(dataset).__name__ == "TikTok_dataset"
+              and len(dataset) == MONO_STEPS * TRAIN_BATCH
+              and trainer.images_per_step == TRAIN_BATCH,
+              f"{what}: {type(dataset).__name__} of {len(dataset)} samples, "
+              f"{trainer.images_per_step} images a step")
+        check(trainer.state.step == MONO_STEPS,
+              f"{what}: {trainer.state.step} steps, expected {MONO_STEPS}")
+        run["launches_per_step"], run["path_launches_per_step"] = \
+            _check_train_launches(MONO_STEPS, what, MONO_LAUNCHES,
+                                  MONO_PATH_LAUNCHES)
+        run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        check(len(trainer.history) == MONO_STEPS and all(
+            set(h) == {f"loss/{k}" for k in MONO_LOSSES}
+            | {"loss_total", "loss_disc"}
+            and np.isfinite(list(h.values())).all()
+            for h in trainer.history),
+            f"{what}: losses {trainer.history}")
+        run["losses"] = trainer.history
+        run["batch_made_ms"] = [t * 1e3 for t in trainer.loader.batch_seconds]
+        steady = run["step_ms"][1:]
+        run["mean_step_ms"] = float(np.mean(steady))
+        run["img_per_s"] = TRAIN_BATCH / (run["mean_step_ms"] / 1e3)
+        run["mean_batch_made_ms"] = float(np.mean(run["batch_made_ms"]))
+        # the loader against the step it has to keep up with, both after
+        # the first (cold) one
+        run["loader_sets_the_pace"] = bool(
+            np.mean(run["batch_made_ms"][1:]) > run["mean_step_ms"])
+        (name,) = os.listdir(log_dir)
+        path = os.path.join(log_dir, name, "00000_ckpt")
+        check(sorted(os.listdir(os.path.join(log_dir, name)))
+              == ["00000_ckpt", "TikTok_Multi_S1.json", "tensorboard"],
+              f"{what}: run directory {os.listdir(os.path.join(log_dir, name))}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # eval2d: MPII PCKh of that checkpoint, bf16, batches of 32
+        _reset_counts()
+        ev = eval2d_main(["--config", mcfg_path, "--checkpoint", path])
+        torch.cuda.synchronize()
+        nb = ev.num_batches
+        check(nb == MPII_IMAGES // TRAIN_BATCH,
+              f"mono eval2d: {nb} batches of {len(ev.dataset)} crops")
+        counters = _counters()
+        eval_launches = {k: fn.launches / nb for k, fn in counters.items()}
+        for k, per_batch in EVAL2D_LAUNCHES.items():
+            check(eval_launches[k] == per_batch,
+                  f"mono eval2d: {k} launched {eval_launches[k]} times a "
+                  f"batch, expected {per_batch}")
+        check(fused_bn_relu_conv.launches_wgmma
+              == EVAL2D_LAUNCHES["conv_bn_link"] * nb,
+              f"mono eval2d: {fused_bn_relu_conv.launches_wgmma} links on "
+              f"wgmma")
+        with open(ev.result_path) as f:
+            line = f.read().strip()
+        key, _, value = line.partition(":")
+        check(key == "PCKh@0.5" and np.isfinite(float(value))
+              and 0.0 <= float(value) <= 100.0,
+              f"mono eval2d: eval2d_result.txt {line!r}")
+        step_s = sum(ev.step_ms) / 1e3
+        eval2d = dict(batches=nb, pckh=float(value),
+                      step_ms=list(ev.step_ms),
+                      wall_s=ev.wall_s, host_share=1.0 - step_s / ev.wall_s,
+                      launches_per_batch=eval_launches,
+                      img_per_s=nb * ev.batch_size / step_s)
+
+        # serving from the mono checkpoint: the keypoints of eval2d's
+        # forward on the same 32 crops. The decode forward sums its x/y
+        # marginals with shared-memory atomics, in the order the warps
+        # reach them, so two runs of one forward may part in the last bits
+        # of x, y (1.2e-7 in the first run on the card); z comes from
+        # ordered sums and its peak choice, and is equal
+        crops = ev.dataset.batch(0, TRAIN_BATCH)["cam_mono_img"]
+        want = ev.forward(crops)
+        again = ev.forward(crops)
+        est = PoseEstimator(load_config(mcfg_path), checkpoint_path=path,
+                            batch_size=TRAIN_BATCH)
+        integral_marginals.launches = fused_bn_relu_conv.launches = 0
+        got = est(crops).kps_patch
+        torch.cuda.synchronize()
+        serve_err = float(np.abs(got - want).max())
+        rerun_err = float(np.abs(again - want).max())
+        check(got.shape == want.shape
+              and np.array_equal(got[..., 2], want[..., 2])
+              and serve_err <= 1e-5,
+              f"mono serve: keypoints differ from eval2d's by {serve_err} "
+              f"(eval2d's forward from itself: {rerun_err})")
+        check(integral_marginals.launches == 1
+              and fused_bn_relu_conv.launches == 7,
+              f"mono serve: {integral_marginals.launches} decodes, "
+              f"{fused_bn_relu_conv.launches} links for one forward")
+        del est
+
+        # fp32 on the card against the CPU: one step, the eval2d forward
+        pcfg = _mono_parity_config()
+        b = pcfg["train_params"]["batch_size"]
+        parity = _train_parity(
+            pcfg, "mono_parity", "TikTok_Multi_S1 reduced: ResNet-50 at "
+            "64^2, D = 16, mono, batch 4",
+            batch=SyntheticMonoDataset(num_samples=b, patch_size=64,
+                                       seed=SEED).batch(0, b))
+        eval_parity = _mono_eval_parity(load_config(mcfg_path), path,
+                                        ev.dataset)
+        del ev
+        torch.cuda.empty_cache()
+
+    record = dict(
+        phase="mono", card=card, kernel_cases=len(kernel_cases),
+        fixture=dict(
+            tiktok_frames=MONO_FRAMES, frame_hw=MONO_FRAME_HW,
+            pseudo=MONO_PSEUDO, mpii_images=MPII_IMAGES, mpii_hw=MPII_HW,
+            written_s=fixture_s),
+        config="TikTok_Multi_S1 (JSON), 1 camera x 32 at 256^2, bf16",
+        train_cli=run, eval2d=eval2d, serve_max_err=serve_err,
+        eval2d_rerun_max_err=rerun_err,
+        parity_loss_rel_err=max(parity["loss_rel_err"].values()),
+        parity_grad_max_rel_err=parity["grad_max_rel_err"],
+        eval2d_fp32=eval_parity)
+    emit(**record)
+    record["kernel_cases"] = kernel_cases
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -2287,6 +2643,7 @@ def main() -> int:
         phase_eval_parity()
         phase_real_data(device["nvidia_smi"])
         variants = phase_variants()
+        mono = phase_mono(device["nvidia_smi"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2302,10 +2659,24 @@ def main() -> int:
                               and c["shape"][1:] == [32, 256, 256]
                               and c["cout"] == 32),
     }
+    # and at the mono step's (batch 32, bf16)
+    mono_case = {
+        "integral_marginals": lambda c: (c["dtype"] == "bf16"
+                                         and c["shape"][0] == TRAIN_BATCH),
+        "integral_marginals_bwd": lambda c: (c["dtype"] == "bf16"
+                                             and c["shape"][0] == TRAIN_BATCH),
+        "conv_bn_link": lambda c: (c["dtype"] == "bf16"
+                                   and c["shape"][:2] == [TRAIN_BATCH, 256]),
+        "conv3x3": lambda c: (c["dtype"] == "bf16"
+                              and c["shape"] == [TRAIN_BATCH, 32, 256, 256]
+                              and c["cout"] == 32),
+    }
     kernels = []
     for name, meta in KERNELS.items():
         case = next(c for c in cases
                     if c["name"] == name and main_case[name](c))
+        mcase = next(c for c in cases + mono["kernel_cases"]
+                     if c["name"] == name and mono_case[name](c))
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=train["launches"][name],
@@ -2319,6 +2690,11 @@ def main() -> int:
             eval_launches=train_eval["modes"]["best"][
                 "launches_per_batch"][name],
             variants_launches=variants["launches_per_step"][name],
+            mono_launches=mono["train_cli"]["launches_per_step"][name],
+            eval2d_launches=mono["eval2d"]["launches_per_batch"][name],
+            mono_shape=mcase["shape"], mono_max_abs_err=mcase["max_abs_err"],
+            mono_ms=mcase["ms"], mono_plain_ms=mcase["plain_ms"],
+            mono_bound_ms=mcase["bound_ms"],
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

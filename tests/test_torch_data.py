@@ -387,7 +387,10 @@ def test_uint8_feed_preprocessed_equals_the_float_feed(trees):
 
 
 def test_registries_match_the_jax_package():
-    assert set(PF.IMDB_REGISTRY) == set(JF.IMDB_REGISTRY) - {"mpii"}
+    assert set(PF.IMDB_REGISTRY) == set(JF.IMDB_REGISTRY)
+    assert "mpii" in PF.IMDB_REGISTRY
+    for name, cls in PF.IMDB_REGISTRY.items():
+        assert cls.__name__ == JF.IMDB_REGISTRY[name].__name__
     assert set(PF.DATASET_REGISTRY) == set(JF.DATASET_REGISTRY)
     for name, cls in PF.DATASET_REGISTRY.items():
         assert cls.__name__ == JF.DATASET_REGISTRY[name].__name__
@@ -397,9 +400,16 @@ def test_registries_match_the_jax_package():
 
 
 def test_mpii_is_not_ported(trees):
-    cfg = _config(trees["port"])
-    cfg["dataset_params"]["dataset"]["name"] = "mpii"
-    with pytest.raises(NotImplementedError, match="mpii"):
+    """Both packages' basic_data refuse mpii: MPII is read only by the 2D
+    eval CLI (the JAX package's raises a TypeError, its mpii taking no
+    init_mode)."""
+    for fac, side, err in ((JF, "jax", TypeError), (PF, "port", ValueError)):
+        cfg = _config(trees[side])
+        cfg["dataset_params"]["dataset"]["name"] = "mpii"
+        for eval_only in (False, True):
+            with pytest.raises(err):
+                fac.basic_data(cfg, eval_only=eval_only)
+    with pytest.raises(ValueError, match="eval2d"):
         PF.basic_data(cfg)
 
 

@@ -186,6 +186,10 @@ def test_port_imports_no_jax():
     # datasets of data/
     count, names = res.stdout.strip().splitlines()[-2:]
     assert int(count) >= 13
-    for mod in ("affine", "augment", "factory", "geodesic", "hm36", "imdb",
-                "loader", "mpi_inf_3dhp", "pipeline", "samples"):
+    for mod in ("affine", "augment", "dataloader_2d", "factory", "geodesic",
+                "hm36", "imdb", "loader", "mpi_inf_3dhp", "mpii", "pipeline",
+                "samples"):
         assert f"x_as_supervision_tpu_torch.data.{mod}" in names.split()
+    # the 2D path's entry points and the figure writers
+    for mod in ("eval2d", "train2d3d", "train.figures"):
+        assert f"x_as_supervision_tpu_torch.{mod}" in names.split()

@@ -490,3 +490,133 @@ def hm36_dataset_params(root) -> dict:
 # config/HM36_Multi_SurS2.yaml's train_params.aug: no augmentation
 NO_AUG = {"scale_factor": 0.0, "rot_factor": 0, "color_factor": 0.0,
           "rot_aug_rate": 0.0, "flip_aug_rate": 0.0, "do_flip_aug": False}
+
+
+def _body_silhouette(joints_px, size_hw, parent_ids, width: int):
+    """(H, W) uint8 of 255s: the skeleton's bones as thick lines and a disc
+    at each joint, a filled person shape rather than a stick figure."""
+    from .data.affine import cv2_module
+
+    cv2 = cv2_module()
+    body = np.zeros(size_hw, np.uint8)
+    pts = np.round(joints_px).astype(int)
+    for j, p in enumerate(parent_ids):
+        cv2.line(body, tuple(pts[j]), tuple(pts[p]), 255, width)
+        cv2.circle(body, tuple(pts[j]), width // 2 + 2, 255, -1)
+    return body
+
+
+def _smooth_frame(body, rng, size_hw):
+    """A BGR frame: a smooth background (a random 2 x 2 image stretched
+    bilinearly), the body a flat colour. Smooth images write fast as PNG."""
+    from .data.affine import cv2_module
+
+    h, w = size_hw
+    corners = rng.integers(30, 130, (2, 2, 3)).astype(np.uint8)
+    img = cv2_module().resize(corners, (w, h))
+    img[body > 0] = rng.integers(150, 240, 3).astype(np.uint8)
+    return img
+
+
+def write_mini_tiktok(root, n_frames: int = 48, videos=None,
+                      size_hw=(1080, 604), seed: int = 0) -> str:
+    """A TikTok dataset tree, the layout data/dataloader_2d.py:TikTok_dataset
+    reads: for each video number v of `videos` (default the first training
+    video) ``<root>/TikTok_dataset/<v:05d>/images/<i:05d>.png``, `n_frames`
+    portrait BGR frames of `size_hw` (height, width; the dataset's own
+    1080 x 604 by default), and ``masks/<i:05d>.png``, 0/255 person masks.
+    Each frame holds a seeded random pose drawn as a filled person on a
+    smooth background, its mask the same shape. The dataset keeps frames
+    [20:-20] of each video, so `n_frames` - 40 samples a video. Returns
+    <root>/TikTok_dataset (dataset_params.dataset.path)."""
+    from .data.affine import cv2_module
+    from .data.dataloader_2d import TIKTOK_TRAIN_VIDEOS
+    from .data.synthetic import H36M_PARENT_IDS, _random_pose
+
+    cv2 = cv2_module()
+    videos = (TIKTOK_TRAIN_VIDEOS[0],) if videos is None else videos
+    rng = np.random.default_rng(seed)
+    data = os.path.join(root, "TikTok_dataset")
+    h, w = size_hw
+    png = [cv2.IMWRITE_PNG_COMPRESSION, 1]
+    for v in videos:
+        dirs = [os.path.join(data, f"{v:05d}", sub)
+                for sub in ("images", "masks")]
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
+        for i in range(n_frames):
+            pose = _random_pose(rng)  # mm, pelvis-centred, y down
+            scale = 0.55 * h / 1700.0 * rng.uniform(0.8, 1.1)
+            centre = np.array([w / 2, h / 2]) + rng.uniform(-0.08, 0.08, 2) * (
+                w, h)
+            px = centre + pose[:, :2] * scale
+            body = _body_silhouette(px, (h, w), H36M_PARENT_IDS,
+                                    max(3, w // 20))
+            name = f"{i:05d}.png"
+            cv2.imwrite(os.path.join(dirs[0], name),
+                        _smooth_frame(body, rng, (h, w)), png)
+            cv2.imwrite(os.path.join(dirs[1], name), body, png)
+    return data
+
+
+def write_mini_mpii(root, n_images: int = 8, size_hw=(720, 1280),
+                    seed: int = 0, overexposed=()) -> tuple[str, str]:
+    """An MPII tree, the layout data/mpii.py reads: ``<root>/mpii/images/
+    im%04d.jpg``, `n_images` BGR frames of `size_hw` (height, width) each
+    holding one seeded random pose drawn as a filled person; their SAM-style
+    masks ``<root>/sam_masks/mpii/im%04d.jpg`` (0/255, the person about 10-
+    40 % of the frame); ``annot/mpii_valid.json`` (per image: its name,
+    center, scale = the body's height / 200, the 16 MPII joints in 1-based
+    pixels, all visible) and ``annot/mpii_gt_valid.mat`` (``headboxes_src``
+    (2, 2, n): a box from the head top to the upper neck). The images whose
+    index is in `overexposed` get an all-white mask, which the index's
+    over-exposure filter drops. Returns (<root>/mpii, <root>/sam_masks/mpii):
+    dataset_params.dataset.path and mask_path."""
+    import json
+
+    from scipy.io import savemat
+
+    from .data.affine import cv2_module
+    from .data.hm36 import S_HM36_2_MPII_JT
+    from .data.synthetic import H36M_PARENT_IDS, _random_pose
+
+    cv2 = cv2_module()
+    rng = np.random.default_rng(seed)
+    path = os.path.join(root, "mpii")
+    mask_path = os.path.join(root, "sam_masks", "mpii")
+    for d in (os.path.join(path, "images"), os.path.join(path, "annot"),
+              mask_path):
+        os.makedirs(d, exist_ok=True)
+    h, w = size_hw
+    anno, heads = [], np.zeros((2, 2, n_images))
+    for i in range(n_images):
+        pose = _random_pose(rng)
+        body_h = 0.75 * h * rng.uniform(0.85, 1.0)
+        centre = np.array([w / 2, h / 2]) + rng.uniform(-0.1, 0.1, 2) * (w, h)
+        px = centre + pose[:, :2] * body_h / 1700.0
+        body = _body_silhouette(px, (h, w), H36M_PARENT_IDS,
+                                max(3, int(body_h / 7)))
+        mask = (np.full((h, w), 255, np.uint8) if i in overexposed
+                else body)
+        name = f"im{i:04d}.jpg"
+        cv2.imwrite(os.path.join(path, "images", name),
+                    _smooth_frame(body, rng, (h, w)))
+        cv2.imwrite(os.path.join(mask_path, name), mask)
+        joints = px[S_HM36_2_MPII_JT] + 1.0  # MPII's 1-based pixels
+        top, neck = joints[9], joints[8]
+        half = 0.5 * np.linalg.norm(top - neck)
+        heads[0, :, i] = np.minimum(top, neck) - half
+        heads[1, :, i] = np.maximum(top, neck) + half
+        lo, hi = px.min(axis=0), px.max(axis=0)
+        anno.append({
+            "image": name,
+            "center": ((lo + hi) / 2 + 1.0).tolist(),
+            "scale": float((hi[1] - lo[1]) / 200.0),
+            "joints": joints.tolist(),
+            "joints_vis": [1] * 16,
+        })
+    with open(os.path.join(path, "annot", "mpii_valid.json"), "w") as f:
+        json.dump(anno, f)
+    savemat(os.path.join(path, "annot", "mpii_gt_valid.mat"),
+            {"headboxes_src": heads})
+    return path, mask_path

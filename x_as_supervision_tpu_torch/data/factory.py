@@ -8,13 +8,18 @@ two deliberate fixes noted in SURVEY.md §7.5:
     eval(name + "_Dataset");
   * index builders resolve through a registry instead of getattr on a
     module (the reference's __all__ dict was vestigial).
-The 2D MPII index (``mpii``) is not ported; naming it raises.
+The registry holds the 2D MPII index (``mpii``) as the JAX package's does,
+but ``basic_data`` refuses it, as the JAX package's does (there a TypeError:
+``mpii`` takes no ``init_mode``): MPII is read only by the 2D eval CLI
+(eval2d.py, through data/dataloader_2d.py:mpii_dataset). The
+TikTok mono dataset is built by the train2d3d CLI, not here.
 """
 
 from __future__ import annotations
 
 from . import hm36 as hm36_mod
 from . import mpi_inf_3dhp as mpi_mod
+from . import mpii as mpii_mod
 from .pipeline import (
     hm36_Dataset,
     mpi_inf_3dhp_Dataset,
@@ -25,6 +30,7 @@ IMDB_REGISTRY = {
     "hm36": hm36_mod.hm36,
     "human36": hm36_mod.hm36,
     "mpi_inf_3dhp": mpi_mod.mpi_inf_3dhp,
+    "mpii": mpii_mod.mpii,
 }
 
 DATASET_REGISTRY = {
@@ -40,6 +46,11 @@ def _build_imdb(name: str, ds_cfg: dict, train_param: dict, image_set: str,
         raise NotImplementedError(
             f"dataset {name!r}: the port has the index builders "
             f"{sorted(IMDB_REGISTRY)}")
+    if name == "mpii":
+        raise ValueError(
+            "dataset 'mpii' is read only by the 2D eval CLI "
+            "(python -m x_as_supervision_tpu_torch.eval2d), not by "
+            "basic_data")
     cls = IMDB_REGISTRY[name]
     return cls(
         image_set,

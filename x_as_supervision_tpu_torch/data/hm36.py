@@ -44,6 +44,10 @@ S_36_PARENT_IDS = np.array(
     dtype=np.int32,
 )
 
+# H36M's 18 joints -> MPII's 16, the 2D path's scoring order (reference:
+# hm36.py:52-57)
+S_HM36_2_MPII_JT = [3, 2, 1, 4, 5, 6, 0, 17, 8, 10, 16, 15, 14, 11, 12, 13]
+
 def cam_project(xyz, fx, fy, cx, cy):
     return xyz[..., 0] / xyz[..., 2] * fx + cx, xyz[..., 1] / xyz[..., 2] * fy + cy
 

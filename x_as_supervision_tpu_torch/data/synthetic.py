@@ -173,6 +173,55 @@ class SyntheticPoseDataset:
         return out
 
 
+class SyntheticMonoDataset:
+    """Mono-camera (TikTok-shaped) synthetic fixture: cam_mono_* keys with
+    identity camera, stick-figure masks, and a pseudo stream."""
+
+    def __init__(self, num_samples: int = 32, patch_size: int = 64,
+                 seed: int = 0, with_pseudo: bool = True):
+        self._multi = SyntheticPoseDataset(
+            num_samples, cam_id_list=(0,), patch_size=patch_size, seed=seed,
+            with_pseudo=with_pseudo,
+        )
+        self.size = patch_size
+
+    def __len__(self):
+        return len(self._multi)
+
+    def sample(self, idx: int) -> dict:
+        src = self._multi.sample(idx)
+        out = {
+            "cam_mono_img": src["cam_0_img"],
+            "cam_mono_img_ori": src["cam_0_img"],
+            "cam_mono_mask": src["cam_0_mask"],
+            "cam_mono_geodesic_dis": src["cam_0_geodesic_dis"],
+            "cam_mono_k_mat": np.eye(3, dtype=np.float32),
+            "cam_mono_pelvis": np.zeros(3, np.float32),
+            "cam_mono_rot_world": np.eye(3, dtype=np.float32),
+            "cam_mono_trans_world": np.zeros(3, np.float32),
+            "cam_mono_trans_image": np.array(
+                [[1, 0, 0], [0, 1, 0]], np.float32
+            ),
+        }
+        if "cam_0_pseudo_img" in src:
+            out["cam_mono_pseudo_img"] = src["cam_0_pseudo_img"]
+            out["cam_mono_pseudo_joints"] = src["cam_0_pseudo_joints"]
+        return out
+
+    def batch(self, start: int, batch_size: int) -> dict:
+        return self.batch_from_indices(
+            (start + i) % len(self) for i in range(batch_size))
+
+    def device_batch(self, start: int, batch_size: int) -> dict:
+        return self.batch(start, batch_size)
+
+    def batch_from_indices(self, indices) -> dict:
+        samples = [self.sample(int(i)) for i in indices]
+        return {
+            k: np.stack([s[k] for s in samples]) for k in samples[0]
+        }
+
+
 def synthetic_dataset(config: dict) -> SyntheticPoseDataset:
     """The fixture the train and eval CLIs use with ``--synthetic``, sized as
     the JAX package's train.py:build_dataset sizes it."""

@@ -3,12 +3,14 @@ patch images (+ optional masks for background removal) and write the
 multi-hypothesis keypoints to JSON.
 
   python -m x_as_supervision_tpu_torch.infer --config <yaml> \
-      --weights <det.npz> --images <dir-of-pngs> [--masks <dir>] \
-      [--out poses.json] [--device cpu]
+      (--checkpoint <ckpt_dir> | --weights <det.npz>) \
+      --images <dir-of-pngs> [--masks <dir>] [--out poses.json] \
+      [--device cpu]
 
-<det.npz> holds JAX detector variables as params/... and batch_stats/...
-keys (see weights.py). The CLI runs on the CUDA card unless --device names
-another device.
+<ckpt_dir> is a checkpoint the port's trainer wrote (its detector is
+served, as infer.py serves a checkpoint); <det.npz> holds JAX detector
+variables as params/... and batch_stats/... keys (see weights.py). The CLI
+runs on the CUDA card unless --device names another device.
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ import numpy as np
 def main(argv: list[str] | None = None) -> None:
     parser = ArgumentParser()
     parser.add_argument("--config", required=True)
-    parser.add_argument("--weights", required=True,
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--checkpoint", default=None,
+                        help="checkpoint directory of the port's trainer")
+    source.add_argument("--weights", default=None,
                         help=".npz of JAX detector variables")
     parser.add_argument("--images", required=True,
                         help="directory of pre-cropped patch images")
@@ -43,6 +48,7 @@ def main(argv: list[str] | None = None) -> None:
 
     config = load_config(opt.config)
     est = PoseEstimator(config, weights_path=opt.weights,
+                        checkpoint_path=opt.checkpoint,
                         batch_size=opt.batch_size, device=opt.device)
 
     paths = sorted(

@@ -16,8 +16,14 @@ changes.
 ``smpl_disc_params.use_aug`` adds the rotation augmentation: each pose
 turned about z by an angle uniform in [-pi/4, pi/4] (ops/geometry.py:
 rotate_z). Its uniforms are drawn from the phase's generator, or passed in
-as ``rot_u`` (the tests feed the JAX package's draws). Left out: the
-mono-camera path and the remat modes (the port keeps every activation).
+as ``rot_u`` (the tests feed the JAX package's draws).
+
+A batch that carries ``cam_mono_img`` (the TikTok and MPII datasets, the
+2D path) takes the mono branch, as in the JAX package: one ``mono`` camera
+whatever the config's cam_id_list, its world lift the reference's
+camera-free one (``_mono_world``), no ``kp_gt_world`` output, and no
+symmetry loss (a zero tensor where symmetry is configured). Left out: the
+remat modes (the port keeps every activation).
 """
 
 from __future__ import annotations
@@ -127,8 +133,10 @@ def preprocess_batch(batch: dict, spec: GanSpec) -> dict:
 
 
 def _cams(spec: GanSpec, batch: dict):
+    """The batch's cameras: the single mono view of a mono dataset
+    (reference: modules/model.py:51-55), else the config's."""
     if "cam_mono_img" in batch:
-        raise NotImplementedError("the mono-camera path is not ported")
+        return ("mono",)
     return spec.cam_id_list
 
 
@@ -199,7 +207,8 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
     kps_world = {}
     for i, cam in enumerate(cams):
         kps_bh = kps_all[i].reshape(b * nh, *kps_all.shape[3:])
-        world = _lift(kps_bh, batch, f"cam_{cam}", side, rep=nh)
+        world = (_mono_world(kps_bh) if cam == "mono"
+                 else _lift(kps_bh, batch, f"cam_{cam}", side, rep=nh))
         kps_world[cam] = world.reshape(b, nh, *world.shape[1:])
     if outputs is not None:
         for i, cam in enumerate(cams):
@@ -208,14 +217,16 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
             if i == 0:
                 outputs[f"depth_map_{ck}"] = decode.depth_prob_map.detach()
             outputs[f"pose_3d_depth_{ck}"] = kps_world[cam][:1, 0].detach()
-        with torch.no_grad():
-            first = {k: v[:1] for k, v in batch.items()
-                     if k.startswith("cam_0_")}
-            outputs["kp_gt_world"] = G.convert_patch_to_world(
-                first["cam_0_joints"], first["cam_0_trans_image"],
-                first["cam_0_pelvis"], first["cam_0_k_mat"],
-                first["cam_0_trans_world"], first["cam_0_rot_world"],
-                image_width=side, image_height=side, is_norm=False)
+        # no GT world probe in mono (reference modules/model.py:83-84)
+        if "mono" not in cams:
+            with torch.no_grad():
+                first = {k: v[:1] for k, v in batch.items()
+                         if k.startswith("cam_0_")}
+                outputs["kp_gt_world"] = G.convert_patch_to_world(
+                    first["cam_0_joints"], first["cam_0_trans_image"],
+                    first["cam_0_pelvis"], first["cam_0_k_mat"],
+                    first["cam_0_trans_world"], first["cam_0_rot_world"],
+                    image_width=side, image_height=side, is_norm=False)
 
     # one line render over all cameras, hypothesis 0's x, y
     kps2d = kps_all[:, :, 0, :, :2].reshape(nc * b, -1, 2)
@@ -231,6 +242,10 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
         w = cfg["symmetry_loss"]["weight"]
         loss_sym = 0.0
         for i, cam in enumerate(cams):
+            if cam == "mono":
+                # the mono camera has no symmetry loss (reference
+                # modules/model.py:100-102)
+                continue
             per_hypo = []
             for h in range(nh):
                 kw = kps_world[cam][:, h]
@@ -242,6 +257,10 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
                         * w["kp_2d"])
                 per_hypo.append(val)
             loss_sym = loss_sym + torch.amin(torch.stack(per_hypo))
+        if not torch.is_tensor(loss_sym):
+            # a sum over no camera: a tensor on the step's device, for the
+            # trainer's one packed fetch of the metrics
+            loss_sym = torch.zeros((), device=imgs.device)
         losses["symmetry"] = loss_sym
 
     if "smpl_gen_loss" in cfg and spec.discriminator is not None:

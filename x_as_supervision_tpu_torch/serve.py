@@ -1,7 +1,8 @@
 """Inference / serving path: the port of the JAX package's serve.py.
 
-``PoseEstimator`` loads detector weights, runs the detector in eval mode over
-pre-cropped patches in chunks of ``batch_size``, and returns
+``PoseEstimator`` loads detector weights (a checkpoint of the port's
+trainer, a state_dict, or a ``.npz`` of JAX variables), runs the detector in
+eval mode over pre-cropped patches in chunks of ``batch_size``, and returns
 multi-hypothesis keypoints in normalized patch coordinates and in patch
 pixels; ``lift_to_world`` takes them to world mm given calibration.
 
@@ -47,18 +48,26 @@ class PoseEstimator:
         batch_size: int = 8,
         dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device | None = None,
+        checkpoint_path: str | None = None,
     ):
         """det_state: a detector state_dict (``net.backbone.*``,
         ``net.head.*``); weights_path: a ``.npz`` of JAX detector variables
-        (see weights.py). One of the two is needed."""
+        (see weights.py); checkpoint_path: a ``<run>/{epoch:05d}_ckpt`` of
+        the port's trainer (its detector, as the JAX package's PoseEstimator
+        restores one). One of the three is needed."""
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.patch = int(config["train_params"].get("patch_width", 256))
         dataiter = config.get("dataset_params", {}).get("dataiter", {})
         self.mean, self.std = dataiter.get("mean"), dataiter.get("std")
+        if det_state is None and checkpoint_path is not None:
+            from .train import checkpoint as ckpt
+
+            det_state = ckpt.restore_detector(checkpoint_path)
         if det_state is None:
             if weights_path is None:
-                raise ValueError("need det_state or weights_path")
+                raise ValueError("need det_state, weights_path or "
+                                 "checkpoint_path")
             det_state = weights.load_npz(weights_path)
         det = build_detector(config["model_params"]["detector_params"], dtype)
         det.load_state_dict(det_state)

@@ -35,40 +35,39 @@ def setup_seed(seed: int) -> None:
         random.seed(seed)
 
 
-def main(argv=None):
-    """Parses `argv`, trains, and returns the Trainer."""
-    parser = ArgumentParser(description=__doc__)
-    parser.add_argument("--config", required=True, help="path to config")
-    parser.add_argument("--synthetic", action="store_true",
-                        help="train on the in-memory synthetic fixture")
-    parser.add_argument("--seed", default=-1, type=int,
-                        help="-1: a seed from the clock")
-    parser.add_argument("--steps", default=None, type=int,
-                        help="stop after this many steps")
-    parser.add_argument("--batch_size", default=None, type=int)
-    parser.add_argument("--epoch", default=None, type=int,
-                        help="number of epochs (train_params.num_epochs)")
-    parser.add_argument("--worker", default=10, type=int,
-                        help="data pipeline worker threads")
-    parser.add_argument("--backbone_init", default=None,
-                        help="ImageNet backbone: a torchvision .pth/.pt or "
-                             "the JAX package's converted npz")
-    parser.add_argument("--log_dir", default="log", help="path to log into")
-    parser.add_argument("--checkpoint", default=None,
-                        help="checkpoint to restore, or 'auto'")
-    parser.add_argument("--finetune", action="store_true",
-                        help="take the checkpoint's weights only (S1 -> S2)")
-    parser.add_argument("--extra_tag", default="")
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: the CUDA card)")
-    parser.add_argument("--fp32", action="store_true",
-                        help="compute in fp32 instead of bf16")
-    opt = parser.parse_args(argv)
+def base_parser(description: str) -> ArgumentParser:
+    """The flags of both train CLIs (this one and train2d3d)."""
+    p = ArgumentParser(description=description)
+    p.add_argument("--config", required=True, help="path to config")
+    p.add_argument("--seed", default=-1, type=int,
+                   help="-1: a seed from the clock")
+    p.add_argument("--steps", default=None, type=int,
+                   help="stop after this many steps")
+    p.add_argument("--batch_size", default=None, type=int)
+    p.add_argument("--epoch", default=None, type=int,
+                   help="number of epochs (train_params.num_epochs)")
+    p.add_argument("--worker", default=10, type=int,
+                   help="data pipeline worker threads")
+    p.add_argument("--log_dir", default="log", help="path to log into")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint to restore, or 'auto'")
+    p.add_argument("--finetune", action="store_true",
+                   help="take the checkpoint's weights only (S1 -> S2)")
+    p.add_argument("--extra_tag", default="")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+    p.add_argument("--fp32", action="store_true",
+                   help="compute in fp32 instead of bf16")
+    return p
 
+
+def run(opt, make_dataset, backbone_init: str | None = None):
+    """Trains as `opt` (base_parser's flags) says on
+    ``make_dataset(config)``, from the ImageNet backbone `backbone_init`
+    when given; returns the Trainer."""
     import torch
 
     from ..config import apply_overrides, load_config
-    from ..data.factory import build_dataset
     from .logging import create_writer
     from .trainer import Trainer, auto_checkpoint, create_run_dir
 
@@ -85,19 +84,35 @@ def main(argv=None):
     try:
         # built here, as train.py builds it: the subset policies draw from
         # the global numpy state that setup_seed seeded
-        dataset = build_dataset(config, opt.synthetic)
+        dataset = make_dataset(config)
         trainer = Trainer(config, dataset, seed=opt.seed,
                           dtype=torch.float32 if opt.fp32 else torch.bfloat16,
                           device=opt.device, save_dir=save_dir,
                           checkpoint_path=checkpoint,
                           mode="finetune" if opt.finetune else "train",
                           num_workers=opt.worker,
-                          backbone_init=opt.backbone_init)
+                          backbone_init=backbone_init)
         trainer.history = trainer.train(opt.steps, tb_logger=tb_logger)
     finally:
         tb_logger.close()
     trainer.tb_logger = tb_logger
     return trainer
+
+
+def main(argv=None):
+    """Parses `argv`, trains, and returns the Trainer."""
+    p = base_parser(__doc__)
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on the in-memory synthetic fixture")
+    p.add_argument("--backbone_init", default=None,
+                   help="ImageNet backbone: a torchvision .pth/.pt or the "
+                        "JAX package's converted npz")
+    opt = p.parse_args(argv)
+
+    from ..data.factory import build_dataset
+
+    return run(opt, lambda config: build_dataset(config, opt.synthetic),
+               opt.backbone_init)
 
 
 if __name__ == "__main__":
