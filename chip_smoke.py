@@ -155,10 +155,43 @@ Phases, each of which fails the run (nonzero exit, no result line):
    serve phase conditions its weights) in fp32 on 8 crops, card against
    CPU: normalized keypoints 1e-3, the MPII predictions in original pixels
    1e-2 px, both modes.
+13. dp: data parallelism. (a) The train CLI under ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1`` (one rank,
+   NCCL; the rank runs this file's ``dp-rank`` wrapper, which calls the
+   CLI's main and records its launch counts and collectives) trains the
+   flagship config (4 cameras x 32, bf16, 4 steps) to 00000_ckpt with the
+   launches per step of phase 6; the eval CLI under torchrun scores it with
+   --reduce_hosts, the launches per batch of phase 8. (b) Two ranks on the
+   one card over gloo (NCCL refuses two ranks on one device; gloo
+   all-reduces and broadcasts CUDA tensors; whether its CUDA all-gather
+   runs is recorded): the fp32 flagship config (TF32 off, phase 7's
+   conditioning, cuDNN's deterministic algorithms) at 4 cameras x 16
+   global, 8 a rank, against one process
+   at the global batch: the generator's gradients (summed over the ranks)
+   against one process's on the same code path (a process group of one),
+   per tensor relative to its largest entry, within 1e-2 or twice the
+   native one-process path's own distance from that process (the rounding
+   floor of this random-weight fp32 ResNet-50 at full depth, 1.2-1.5e-2),
+   whichever is larger, beside their distance from the native path, a
+   rerun's and the relative L2 error; one train step's losses 1e-4 relative to the native path; rank
+   1's parameters, running statistics, carried gradient and Adam moments
+   bitwise equal to rank 0's (sent by broadcast); and the link's stats on
+   each rank's half summed over the ranks within 1e-5 of its stats on the
+   whole batch. Before it, the synced BatchNorm's CUDA path (PyTorch's
+   fused BatchNorm kernels) against its plain version on the CPU in a
+   group of one, fp32 and bf16, pooled and per camera. (c) The cost: one
+   rank under torchrun,
+   the bf16 flagship step with its collectives against the same step with
+   no process group seen, by CUDA events in turns (plain, dp, dp, plain, 3
+   steps each), peak memory, the launches of the dp steps (phase 6's), the
+   collectives' calls and bytes per step (parallel/collectives.py:COUNTS)
+   and one profiled step of each (device time by kernel, busy share, the
+   NCCL kernels).
 
 Earlier lines carry the findings as JSON; the line before the last lists the
 kernels (launches per training step, per serving forward, per eval batch,
-per step on the per-camera path, per mono step and per eval2d batch), and
+per step on the per-camera path, per mono step, per eval2d batch and per
+step of the train CLI under torchrun: ``dp_launches``), and
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -289,6 +322,15 @@ EVAL2D_LAUNCHES = {"integral_marginals": 1, "integral_marginals_bwd": 0,
 MONO_LOSSES = ("physique_recons", "reconstruction", "smpl_gen",
                "smpl_pseudo_img")
 
+# data parallelism: two gloo ranks on the one card at this global batch per
+# camera (4 cameras x 16 = 64 fp32 images, 32 per rank: the bf16 step's
+# 41.15 GB at 128 images is about 20 GB per 32 fp32 images, so the two
+# ranks and the card's other process fit); the one-rank NCCL step's cost in
+# turns of this many steps
+DP_PAIR_BATCH = 16
+DP_COST_STEPS = 3
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
 KERNELS = {
     "integral_marginals": dict(
         source="x_as_supervision_tpu_torch/csrc/integral_marginals.cu",
@@ -350,6 +392,14 @@ def set_tf32(on: bool) -> None:
 
     torch.backends.cudnn.allow_tf32 = on
     torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def set_cudnn_deterministic(on: bool) -> None:
+    """cuDNN's deterministic algorithms: a backward that adds in the same
+    order every run (the default ones may not: the pair check's rerun)."""
+    import torch
+
+    torch.backends.cudnn.deterministic = on
 
 
 # ---------------------------------------------------------------- phases
@@ -2619,7 +2669,707 @@ def phase_mono(card: str) -> dict:
     return record
 
 
+# ---------------------------------------------------------------- dp
+
+
+def _torchrun(root: str, role: str, args: list, timeout: float) -> dict:
+    """`python -m torch.distributed.run --standalone --nproc_per_node 1
+    chip_smoke.py dp-rank <role> <out> <args>`: one rank under torchrun
+    (NCCL), which writes its record to <root>/<role>.json."""
+    out = os.path.join(root, f"{role}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__), "dp-rank",
+           role, out, *args]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=timeout, cwd=REPO_ROOT)
+    check(res.returncode == 0,
+          f"dp {role}: torchrun exited {res.returncode}: "
+          f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    with open(out) as f:
+        record = json.load(f)
+    record["process_s"] = time.perf_counter() - t0
+    return record
+
+
+def _dp_rank_counts() -> dict:
+    counters = _counters()
+    return dict(
+        launches={name: fn.launches for name, fn in counters.items()},
+        path_launches={name: {a: getattr(counters[name], a) for a in attrs}
+                       for name, attrs in TRAIN_PATH_LAUNCHES.items()})
+
+
+def _dp_rank_cli(out: str, which: str, args: list) -> None:
+    """A rank of the train or eval CLI under torchrun: the CLI's main on
+    `args`, its launch counts (set to 0 just before) and the collectives
+    it called."""
+    import torch
+
+    from x_as_supervision_tpu_torch.parallel import collectives as C
+    from x_as_supervision_tpu_torch.parallel import mesh
+
+    _reset_counts()
+    C.COUNTS.reset()
+    if which == "train":
+        from x_as_supervision_tpu_torch.train.__main__ import main
+    else:
+        from x_as_supervision_tpu_torch.eval.__main__ import main
+    result = main(args)
+    torch.cuda.synchronize()
+    record = dict(_dp_rank_counts(), collectives=C.COUNTS.snapshot(),
+                  world=mesh.process_count(), rank=mesh.process_index(),
+                  backend=str(torch.distributed.get_backend()),
+                  device=str(torch.cuda.current_device()))
+    if which == "train":
+        record.update(steps=result.state.step,
+                      history=result.history,
+                      peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    else:
+        record.update(batches=len(result.my_batches),
+                      num_batches=result.num_batches,
+                      result_path=result.result_path,
+                      ambiguity_ratio=result.last_ambiguity_ratio)
+    with open(out, "w") as f:
+        json.dump(record, f)
+
+
+def _dp_rank_cost(out: str) -> None:
+    """One rank under torchrun (NCCL, a group of one): the flagship bf16
+    step on its data-parallel path (the synced statistics and losses, the
+    gradient all-reduce) against the same step without a process group,
+    by CUDA events in turns (plain, dp, dp, plain; the plain turns see no
+    group), with the launches and collectives of a dp step and the NCCL
+    kernels' device time in a profiled dp step."""
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from x_as_supervision_tpu_torch.parallel import collectives as C
+    from x_as_supervision_tpu_torch.parallel import mesh
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+    from x_as_supervision_tpu_torch.train.state import train_step
+    from x_as_supervision_tpu_torch.train.trainer import (
+        step_generator, to_device)
+
+    mesh.initialize_multihost()
+    device = mesh.rank_device()
+    cfg = flagship_config()
+    cams = cfg["dataset_params"]["cam_id_list"]
+    spec, state = _gan(cfg, torch.bfloat16, device, SEED)
+    ds = SyntheticPoseDataset(num_samples=TRAIN_BATCH * 2, cam_id_list=cams,
+                              patch_size=PATCH, seed=SEED)
+    batches = [to_device(ds.batch(i * TRAIN_BATCH, TRAIN_BATCH), device)
+               for i in range(2)]
+
+    def step(i):
+        return train_step(state, batches[i % 2],
+                          step_generator(SEED, i, device))
+
+    def plain():
+        return mock.patch.object(dist, "is_initialized", lambda: False)
+
+    with plain():
+        step(0)
+    step(1)  # warm-up of each path
+    torch.cuda.synchronize()
+    times = {"plain": [], "dp": []}
+    peak = {}
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    dp_steps = 0
+    for kind in ("plain", "dp", "dp", "plain"):
+        torch.cuda.reset_peak_memory_stats()
+        before = {name: fn.launches for name, fn in counters.items()}
+        for i in range(DP_COST_STEPS):
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+            if kind == "plain":
+                with plain():
+                    ev0.record()
+                    step(i)
+                    ev1.record()
+            else:
+                C.COUNTS.reset()
+                ev0.record()
+                step(i)
+                ev1.record()
+                dp_steps += 1
+            torch.cuda.synchronize()
+            times[kind].append(ev0.elapsed_time(ev1))
+        peak[kind] = torch.cuda.max_memory_allocated() / 1e9
+        if kind == "dp":
+            for name, fn in counters.items():
+                launches[name] += fn.launches - before[name]
+    per_step = C.COUNTS.snapshot()  # the last dp step's
+    profiles = {}
+    for kind in ("plain", "dp"):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if kind == "plain":
+                with plain():
+                    ev0.record()
+                    step(0)
+                    ev1.record()
+            else:
+                ev0.record()
+                step(0)
+                ev1.record()
+            torch.cuda.synchronize()
+        window_us = ev0.elapsed_time(ev1) * 1e3
+        profiles[kind] = dict(window_us=window_us,
+                              nccl_kernels=_profile_calls(prof, "nccl"),
+                              **_profile_rows(prof, window_us, 12))
+    with open(out, "w") as f:
+        json.dump(dict(
+            step_ms=times, peak_memory_gb=peak, dp_steps=dp_steps,
+            plain_steps=2 * DP_COST_STEPS,
+            launches=launches, collectives_per_step=per_step,
+            profiles=profiles, backend=str(dist.get_backend()),
+            world=mesh.process_count()), f)
+
+
+def _profile_calls(prof, needle: str) -> dict:
+    """Calls and device ms of the CUDA kernels whose name holds `needle`."""
+    import torch
+
+    calls, us = 0, 0.0
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and needle in e.key.lower()):
+            calls += e.count
+            dev = getattr(e, "self_device_time_total", None)
+            us += dev if dev is not None else getattr(
+                e, "self_cuda_time_total", 0.0)
+    return dict(calls=calls, ms=us / 1e3)
+
+
+def _synced_bn_cases() -> list[dict]:
+    """models/resnet.py's synced BatchNorm on the card (PyTorch's fused
+    BatchNorm kernels) against its plain version on the CPU, in a process
+    group of one (gloo), fp32 and bf16, pooled and per camera (4 groups),
+    at two activation shapes of the flagship step: the output and the
+    input gradient (bf16: one bf16 step, 2^-7, of the largest value), the
+    affine's gradients and the running statistics (1e-5; bf16 inputs
+    1e-4), each relative to its largest value."""
+    import socket
+
+    import torch
+
+    from x_as_supervision_tpu_torch.models.resnet import BatchNorm2d
+    from x_as_supervision_tpu_torch.parallel import mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mesh.initialize_multihost(f"localhost:{port}", 1, 0, backend="gloo")
+    cases = []
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in ((128, 256, 16, 16), (64, 64, 64, 64)):
+                for groups in (1, 4):
+                    gen = torch.Generator().manual_seed(SEED)
+                    x = (torch.randn(shape, generator=gen) * 2 + 0.5).to(
+                        dtype).contiguous(memory_format=torch.channels_last)
+                    gy = torch.randn(shape, generator=gen).to(dtype)
+                    affine = (torch.rand(shape[1], generator=gen) + 0.5,
+                              torch.randn(shape[1], generator=gen) * 0.1)
+                    out = {}
+                    for dev in ("cpu", "cuda"):
+                        bn = BatchNorm2d(shape[1]).to(dev)
+                        bn.groups = groups
+                        with torch.no_grad():
+                            bn.weight.copy_(affine[0])
+                            bn.bias.copy_(affine[1])
+                        xx = x.detach().to(dev).requires_grad_()
+                        y = bn(xx)
+                        y.backward(gy.to(dev))
+                        out[dev] = dict(
+                            y=y.detach().float().cpu(),
+                            x_grad=xx.grad.float().cpu(),
+                            weight_grad=bn.weight.grad.cpu(),
+                            bias_grad=bn.bias.grad.cpu(),
+                            running_mean=bn.running_mean.cpu(),
+                            running_var=bn.running_var.cpu())
+                    errs = {k: ((out["cuda"][k] - v).abs().max()
+                                / v.abs().max()).item()
+                            for k, v in out["cpu"].items()}
+                    bf16 = dtype == torch.bfloat16
+                    for k, e in errs.items():
+                        bound = ((2.0 ** -7 if k in ("y", "x_grad") else 1e-4)
+                                 if bf16 else 1e-5)
+                        check(e <= bound, f"dp synced BatchNorm {dtype} "
+                                          f"{shape} groups {groups}: {k} "
+                                          f"off by {e} (bound {bound})")
+                    cases.append(dict(dtype=_kind(dtype), shape=list(shape),
+                                      groups=groups, rel_err=errs))
+    finally:
+        mesh.shutdown()
+    emit(phase="dp_synced_bn", cases=cases)
+    return cases
+
+
+def _dp_pair_config() -> dict:
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+
+    cfg = flagship_config()
+    cfg["train_params"]["batch_size"] = DP_PAIR_BATCH
+    return cfg
+
+
+def _dp_condition(spec) -> None:
+    """Phase 7's conditioning: each residual branch's last BN scale 0.1."""
+    import torch
+
+    from x_as_supervision_tpu_torch.models.resnet import Bottleneck
+
+    with torch.no_grad():
+        for m in spec.detector.modules():
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.fill_(0.1)
+
+
+def _gen_grads(spec, state, batch, generator) -> dict:
+    """The generator loss's gradients (the sum of this rank's shares,
+    summed over the ranks in a process group), by parameter name."""
+    import torch
+
+    from x_as_supervision_tpu_torch.models.composed import generator_forward
+    from x_as_supervision_tpu_torch.parallel import collectives as C
+
+    losses, _ = generator_forward(spec, batch, generator)
+    total = sum(v.mean() for v in losses.values())
+    params = state.gen_params + state.disc_params
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
+        torch.autograd.grad(total, params, allow_unused=True), params)]
+    (grads,) = C.psum_flat(grads)
+    return dict(zip(_named_params(state), grads))
+
+
+def _link_inputs(batch: int):
+    """Seeded inputs of the link at its 256@16^2 training shape, fp32."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    c, side = 256, 16
+    x = torch.randn((batch, c, side, side), generator=gen, device="cuda")
+    w = torch.randn((c, c, 3, 3), generator=gen, device="cuda") * 0.05
+    scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
+    shift = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    return x.contiguous(memory_format=torch.channels_last), w, scale, shift
+
+
+def _dp_pair_reference(root: str) -> dict:
+    """The one-process side of the pair check, at the pair's global batch:
+    the conditioned fp32 state written for the ranks, the generator's
+    gradients, one train step's losses and parameters, and the link's
+    stats on the whole batch."""
+    import torch
+
+    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from x_as_supervision_tpu_torch.ops.conv_bn import fused_bn_relu_conv
+    from x_as_supervision_tpu_torch.train import checkpoint as ckpt
+    from x_as_supervision_tpu_torch.train.state import train_step
+    from x_as_supervision_tpu_torch.train.trainer import (
+        step_generator, to_device)
+
+    cfg = _dp_pair_config()
+    cams = cfg["dataset_params"]["cam_id_list"]
+    spec, state = _gan(cfg, torch.float32, "cuda", SEED)
+    _dp_condition(spec)
+    batch = SyntheticPoseDataset(num_samples=DP_PAIR_BATCH, cam_id_list=cams,
+                                 patch_size=PATCH, seed=SEED).batch(
+                                     0, DP_PAIR_BATCH)
+    np.savez(os.path.join(root, "pair_batch.npz"),
+             **{k: v for k, v in batch.items() if isinstance(v, np.ndarray)})
+    os.makedirs(os.path.join(root, "pair_ckpt"))
+    torch.save(ckpt.state_dict(state),
+               os.path.join(root, "pair_ckpt", ckpt.STATE_FILE))
+    dev = to_device(batch, "cuda")
+    set_tf32(False)
+    set_cudnn_deterministic(True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        grads = _gen_grads(spec, state, dev, step_generator(SEED, 0, "cuda"))
+        grads = {k: v.detach().cpu() for k, v in grads.items()}
+        floors, group_of_one = _gradient_floors(spec, state, dev, grads)
+        metrics = train_step(state, dev, step_generator(SEED, 1, "cuda"))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        x, w, scale, shift = _link_inputs(DP_PAIR_BATCH * len(cams))
+        _, stats = fused_bn_relu_conv(x, w, scale, shift)
+    finally:
+        set_tf32(True)
+        set_cudnn_deterministic(False)
+    torch.save(dict(grads=grads, floors=floors, group_of_one=group_of_one,
+                    metrics={k: float(v) for k, v in metrics.items()},
+                    params={k: p.detach().cpu() for k, p in
+                            _named_params(state).items()},
+                    stats=stats.cpu()),
+               os.path.join(root, "pair_ref.pt"))
+    del spec, state, dev, grads, group_of_one
+    torch.cuda.empty_cache()
+    return dict(peak_memory_gb=peak,
+                gradient_floors={k: max(v.values()) for k, v in
+                                 floors.items()})
+
+
+def _rel_errs(got: dict, want: dict, skip: set) -> dict:
+    """Per tensor, max |got - want| over max |want| (phase 7's measure)."""
+    return {n: ((got[n].cpu() - w).abs().max() / w.abs().max()).item()
+            for n, w in want.items() if n not in skip and w.abs().max() > 0}
+
+
+def _gradient_floors(spec, state, batch, grads) -> dict:
+    """How far the one-process gradients move without data parallelism:
+    the same computation run again (``rerun``: cuDNN's backward kernels
+    may add in another order each run) and the data-parallel code path in
+    a process group of one (``group_of_one``, gloo: the synced BatchNorm's
+    fp32 sums in place of the native kernel's), each held to `grads` by
+    phase 7's measure. Returns those errors and the group of one's
+    gradients (on the CPU: the ranks' reference). The BatchNorm statistics
+    are restored after."""
+    import copy
+    import socket
+
+    from x_as_supervision_tpu_torch.parallel import mesh
+    from x_as_supervision_tpu_torch.train.trainer import step_generator
+
+    saved = {name: copy.deepcopy(getattr(spec, name).state_dict())
+             for name in ("detector", "physique")}
+    skip = {"physique." + n for n in spec.physique.bn_cancelled_biases()}
+    again = _gen_grads(spec, state, batch, step_generator(SEED, 0, "cuda"))
+    floors = {"rerun": _rel_errs(again, grads, skip)}
+    del again
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mesh.initialize_multihost(f"localhost:{port}", 1, 0, backend="gloo")
+    try:
+        one = _gen_grads(spec, state, batch, step_generator(SEED, 0, "cuda"))
+        one = {k: v.detach().cpu() for k, v in one.items()}
+        floors["group_of_one"] = _rel_errs(one, grads, skip)
+    finally:
+        mesh.shutdown()
+    for name, sd in saved.items():
+        getattr(spec, name).load_state_dict(sd)
+    return floors, one
+
+
+def _dp_rank_pair(rank: int, port: int, root: str) -> None:
+    """A rank of the two-rank pair on the one card (gloo): the generator's
+    gradients and one train step from the reference's state on this rank's
+    half of the batch; rank 1 holds its parameters to rank 0's (sent by
+    broadcast), rank 0 holds the gradients, losses and link stats to the
+    one-process reference."""
+    import torch
+    import torch.distributed as dist
+
+    from x_as_supervision_tpu_torch.ops.conv_bn import fused_bn_relu_conv
+    from x_as_supervision_tpu_torch.parallel import collectives as C
+    from x_as_supervision_tpu_torch.parallel import mesh
+    from x_as_supervision_tpu_torch.train import checkpoint as ckpt
+    from x_as_supervision_tpu_torch.train.state import train_step
+    from x_as_supervision_tpu_torch.train.trainer import (
+        step_generator, to_device)
+
+    torch.cuda.set_device(0)
+    mesh.initialize_multihost(f"localhost:{port}", 2, rank, backend="gloo",
+                              timeout_s=600)
+    cfg = _dp_pair_config()
+    cams = cfg["dataset_params"]["cam_id_list"]
+    spec, state = _gan(cfg, torch.float32, "cuda", SEED)
+    ckpt.restore_resume(os.path.join(root, "pair_ckpt"), state)
+    b = DP_PAIR_BATCH // 2
+    batch = {k: v[rank * b:(rank + 1) * b] for k, v in
+             np.load(os.path.join(root, "pair_batch.npz")).items()}
+    dev = to_device(batch, "cuda")
+    set_tf32(False)
+    set_cudnn_deterministic(True)
+    torch.cuda.reset_peak_memory_stats()
+    C.COUNTS.reset()
+    grads = _gen_grads(spec, state, dev, step_generator(SEED, 0, "cuda"))
+    grad_counts = C.COUNTS.snapshot()
+    C.COUNTS.reset()
+    t0 = time.perf_counter()
+    metrics = train_step(state, dev, step_generator(SEED, 1, "cuda"))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_counts = C.COUNTS.snapshot()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    x, w, scale, shift = _link_inputs(DP_PAIR_BATCH * len(cams))
+    rows = x.shape[0] // 2
+    _, stats = fused_bn_relu_conv(x[rank * rows:(rank + 1) * rows], w, scale,
+                                  shift)
+    stats = C.psum_data(stats)
+    # rank 0's parameters, running statistics, carried gradient and Adam
+    # moments to rank 1, bitwise
+    flat = torch.cat([t.detach().reshape(-1).float() for t in (
+        [p for p in _named_params(state).values()]
+        + [v for m in (spec.detector, spec.physique)
+           for k, v in m.state_dict().items() if "running" in k]
+        + list(state.pending_disc_grads)
+        + [s[k] for opt in (state.opt_det, state.opt_disc)
+           for s in opt.state.values() for k in ("exp_avg", "exp_avg_sq")])])
+    theirs = flat.clone()
+    dist.broadcast(theirs, src=0)
+    record = dict(rank=rank, metrics={k: float(v) for k, v in
+                                      metrics.items()},
+                  state_values=flat.numel(),
+                  state_equal_to_rank0=bool(torch.equal(flat, theirs)),
+                  grad_collectives=grad_counts,
+                  step_collectives=step_counts, step_s=step_s,
+                  peak_memory_gb=peak, backend=str(dist.get_backend()))
+    if rank == 0:
+        ref = torch.load(os.path.join(root, "pair_ref.pt"))
+        # phase 7's rule: a bias that a train-mode BatchNorm follows has a
+        # zero gradient up to rounding, which no relative bound holds
+        cancelled = {"physique." + n
+                     for n in spec.physique.bn_cancelled_biases()}
+        # held to the one process on the same code path (the group of
+        # one): the two halves summed over the ranks against the whole
+        # batch; the native one-process path beside it, with its floors
+        err = _rel_errs(grads, ref["group_of_one"], cancelled)
+        worst = max(err, key=err.get)
+        l2 = {n: ((grads[n].cpu() - w).norm() / w.norm()).item()
+              for n, w in ref["group_of_one"].items() if n in err}
+        native = _rel_errs(grads, ref["grads"], cancelled)
+        floors = {k: (max(v, key=v.get), max(v.values()))
+                  for k, v in ref["floors"].items()}
+        lr = float(cfg["train_params"]["lr_kp_detector"])
+        got_p = _named_params(state)
+        pd = max(((got_p[n].detach().cpu() - p).abs().max().item()
+                  for n, p in ref["params"].items()))
+        want_stats = ref["stats"]
+        stats_err = ((stats.cpu() - want_stats).abs().amax(dim=1)
+                     / want_stats.abs().amax(dim=1)).tolist()
+        record.update(
+            loss_rel_err={k: abs(record["metrics"][k] - v) / abs(v)
+                          for k, v in ref["metrics"].items()},
+            grad_max_rel_err=err[worst], grad_worst_tensor=worst,
+            grad_max_rel_l2=max(l2.values()),
+            grad_worst=sorted(err.items(), key=lambda kv: -kv[1])[:6],
+            grad_vs_native=(max(native, key=native.get),
+                            max(native.values())),
+            grad_floors=floors,
+            param_max_diff_over_lr=pd / lr, link_stats_rel_err=stats_err)
+    # gloo has no all-gather of CUDA tensors: what it says
+    try:
+        parts = [torch.empty(1, device="cuda") for _ in range(2)]
+        dist.all_gather(parts, torch.ones(1, device="cuda"))
+        record["gloo_cuda_all_gather"] = "ran"
+    except RuntimeError as e:
+        record["gloo_cuda_all_gather"] = str(e).splitlines()[0][:200]
+    with open(os.path.join(root, f"pair_{rank}.json"), "w") as f:
+        json.dump(record, f)
+    mesh.shutdown()
+
+
+def _dp_pair(root: str) -> dict:
+    """Two gloo ranks on the one card against one process at the global
+    batch (see the module docstring)."""
+    import socket
+
+    ref = _dp_pair_reference(root)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "dp-rank", "pair",
+         str(r), str(port), root], cwd=REPO_ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"dp pair rank {r} exited {p.returncode}: "
+                                 f"{out[-4000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"pair_{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    emit(phase="dp_pair", ranks=ranks, reference=ref)
+    check(ranks[1]["state_equal_to_rank0"],
+          f"dp pair: rank 1's state differs from rank 0's")
+    check(max(r0["loss_rel_err"].values()) <= 1e-4,
+          f"dp pair: loss rel err {r0['loss_rel_err']}")
+    # against one process on the same code path (the synced statistics in
+    # a group of one), by phase 7's measure: its bound 1e-2, or twice the
+    # distance of the native one-process path from that same one process
+    # where that is larger. Both are one process computing the same
+    # function in two summation orders, so that distance is this
+    # configuration's rounding floor: a random-weight fp32 ResNet-50 at
+    # full depth carries it to 1.2-1.5e-2 of a gradient's largest entry
+    # (PERF.md §6), where a fault of the data-parallel path (a
+    # rank's own statistics or draws) moves gradients by O(1)
+    bound = max(1e-2, 2 * r0["grad_floors"]["group_of_one"][1])
+    r0["grad_bound"] = bound
+    check(r0["grad_max_rel_err"] <= bound,
+          f"dp pair: gradient of {r0['grad_worst_tensor']} off by "
+          f"{r0['grad_max_rel_err']} of its largest entry (bound {bound})")
+    # the kernel sums its per-block partials in a fixed order; two halves
+    # summed over the ranks add the same values in another fp32 order
+    check(max(r0["link_stats_rel_err"]) <= 1e-5,
+          f"dp pair: link stats summed over the ranks off by "
+          f"{r0['link_stats_rel_err']}")
+    check(r0["step_collectives"].get("all_reduce", {}).get("calls", 0) > 0,
+          "dp pair: the step called no all-reduce")
+    return dict(reference=ref, ranks=ranks)
+
+
+def phase_dp(card: str) -> dict:
+    """Data parallelism on the card (see the module docstring): (a) the
+    train and eval CLIs under torchrun, one rank over NCCL, at the flagship
+    width; (b) two gloo ranks on the one card against one process; (c) the
+    one-rank step's cost against the step without a process group."""
+    import tempfile
+
+    import torch
+
+    from x_as_supervision_tpu_torch.checks import result_lines
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        cfg = flagship_config()
+        cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
+        cfg_path = os.path.join(root, "flagship.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        log_dir = os.path.join(root, "log")
+        train = _torchrun(root, "train", [
+            "--config", cfg_path, "--synthetic", "--seed", str(SEED),
+            "--log_dir", log_dir], timeout=600)
+        steps = TRAIN_IMAGES // TRAIN_BATCH
+        check(train["steps"] == steps and train["world"] == 1
+              and train["backend"] == "nccl",
+              f"dp train CLI: {train['steps']} steps, world "
+              f"{train['world']}, backend {train['backend']}")
+        for name, per_step in TRAIN_LAUNCHES.items():
+            check(train["launches"][name] == per_step * steps,
+                  f"dp train CLI: {name} launched {train['launches'][name]}"
+                  f" times in {steps} steps, expected {per_step} per step")
+        for name, attrs in TRAIN_PATH_LAUNCHES.items():
+            for attr, per_step in attrs.items():
+                got = train["path_launches"][name][attr]
+                check(got == per_step * steps,
+                      f"dp train CLI: {name}.{attr} = {got} in {steps} "
+                      f"steps, expected {per_step} per step")
+        check(all(np.isfinite(v) for h in train["history"]
+                  for v in h.values()), "dp train CLI: a non-finite loss")
+        (run,) = os.listdir(log_dir)
+        path = os.path.join(log_dir, run, "00000_ckpt")
+        check(os.path.exists(os.path.join(path, "state.pt")),
+              "dp train CLI: no checkpoint")
+        ev = _torchrun(root, "eval", [
+            "--config", cfg_path, "--synthetic", "--checkpoint", path,
+            "--multi_hypo", "best", "--reduce_hosts"], timeout=600)
+        nb = ev["batches"]
+        check(nb == ev["num_batches"] > 0, f"dp eval CLI: {nb} batches")
+        for name, per_batch in EVAL_LAUNCHES.items():
+            check(ev["launches"][name] == per_batch * nb,
+                  f"dp eval CLI: {name} launched {ev['launches'][name]} "
+                  f"times in {nb} batches, expected {per_batch} per batch")
+        lines = result_lines(ev["result_path"])
+        check(len(lines) == 15 and all(
+            v is None or np.isfinite(v) for _, v in lines),
+            f"dp eval CLI: eval_result.txt {lines}")
+        synced_bn = _synced_bn_cases()
+        pair = _dp_pair(root)
+        cost = _torchrun(root, "cost", [], timeout=600)
+    for name, per_step in TRAIN_LAUNCHES.items():
+        got = cost["launches"][name]
+        check(got == per_step * cost["dp_steps"],
+              f"dp cost: {name} launched {got} times in {cost['dp_steps']} "
+              f"dp steps, expected {per_step} per step")
+    mean = {k: sum(v) / len(v) for k, v in cost["step_ms"].items()}
+    ar = cost["collectives_per_step"].get("all_reduce", {})
+    record = dict(
+        phase="dp", card=card,
+        train_cli=dict(
+            steps=steps, process_s=train["process_s"],
+            launches_per_step={k: v / steps
+                               for k, v in train["launches"].items()},
+            collectives=train["collectives"],
+            peak_memory_gb=train["peak_memory_gb"]),
+        eval_cli=dict(batches=nb, process_s=ev["process_s"],
+                      launches_per_batch={k: v / nb for k, v in
+                                          ev["launches"].items()},
+                      collectives=ev["collectives"],
+                      ambiguity_ratio=ev["ambiguity_ratio"],
+                      eval_result=[f"{k}: {v}" if v is not None else k
+                                   for k, v in lines]),
+        synced_bn_max_rel_err={
+            kind: max(max(c["rel_err"].values()) for c in synced_bn
+                      if c["dtype"] == kind) for kind in ("fp32", "bf16")},
+        pair=dict(global_batch_per_camera=DP_PAIR_BATCH,
+                  reference_peak_memory_gb=pair["reference"][
+                      "peak_memory_gb"],
+                  loss_rel_err=pair["ranks"][0]["loss_rel_err"],
+                  grad_max_rel_err=pair["ranks"][0]["grad_max_rel_err"],
+                  grad_worst_tensor=pair["ranks"][0]["grad_worst_tensor"],
+                  grad_bound=pair["ranks"][0]["grad_bound"],
+                  grad_max_rel_l2=pair["ranks"][0]["grad_max_rel_l2"],
+                  grad_vs_native=pair["ranks"][0]["grad_vs_native"],
+                  grad_floors=pair["ranks"][0]["grad_floors"],
+                  param_max_diff_over_lr=pair["ranks"][0][
+                      "param_max_diff_over_lr"],
+                  link_stats_rel_err=pair["ranks"][0]["link_stats_rel_err"],
+                  state_values=pair["ranks"][1]["state_values"],
+                  state_bitwise_equal=pair["ranks"][1][
+                      "state_equal_to_rank0"],
+                  step_s=[r["step_s"] for r in pair["ranks"]],
+                  peak_memory_gb=[r["peak_memory_gb"]
+                                  for r in pair["ranks"]],
+                  step_collectives=pair["ranks"][0]["step_collectives"],
+                  gloo_cuda_all_gather=pair["ranks"][0][
+                      "gloo_cuda_all_gather"]),
+        cost=dict(step_ms=cost["step_ms"], mean_step_ms=mean,
+                  dp_over_plain=mean["dp"] / mean["plain"],
+                  peak_memory_gb=cost["peak_memory_gb"],
+                  collectives_per_step=cost["collectives_per_step"],
+                  all_reduce_calls_per_step=ar.get("calls", 0),
+                  all_reduce_mb_per_step=ar.get("bytes", 0) / 1e6,
+                  profiles=cost["profiles"]))
+    emit(**record)
+    return record
+
+
+def dp_rank_main(argv: list) -> int:
+    """The rank processes of phase_dp: ``dp-rank train|eval <out> <CLI
+    args>`` and ``dp-rank cost <out>`` under torchrun, ``dp-rank pair
+    <rank> <port> <dir>`` beside its twin."""
+    role = argv[0]
+    if role == "pair":
+        _dp_rank_pair(int(argv[1]), int(argv[2]), argv[3])
+        return 0
+    from x_as_supervision_tpu_torch.parallel import mesh
+
+    try:
+        if role == "cost":
+            _dp_rank_cost(argv[1])
+        else:
+            _dp_rank_cli(argv[1], role, argv[2:])
+    finally:
+        mesh.shutdown()
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "dp-rank":
+        return dp_rank_main(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -2644,6 +3394,7 @@ def main() -> int:
         phase_real_data(device["nvidia_smi"])
         variants = phase_variants()
         mono = phase_mono(device["nvidia_smi"])
+        dp = phase_dp(device["nvidia_smi"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2692,6 +3443,7 @@ def main() -> int:
             variants_launches=variants["launches_per_step"][name],
             mono_launches=mono["train_cli"]["launches_per_step"][name],
             eval2d_launches=mono["eval2d"]["launches_per_batch"][name],
+            dp_launches=dp["train_cli"]["launches_per_step"][name],
             mono_shape=mcase["shape"], mono_max_abs_err=mcase["max_abs_err"],
             mono_ms=mcase["ms"], mono_plain_ms=mcase["plain_ms"],
             mono_bound_ms=mcase["bound_ms"],

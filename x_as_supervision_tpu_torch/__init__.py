@@ -4,8 +4,8 @@ for NVIDIA Hopper (H100).
 The JAX package beside it is the reference; this package imports nothing of
 it, nor JAX. What is ported so far is the serving path, the flagship fused
 GAN training step with its checkpoints, TensorBoard logging and the train
-CLI's flags, the eval that scores them, and the datasets they read from
-disk:
+CLI's flags, the eval that scores them, the datasets they read from disk,
+and data-parallel training and eval over several processes:
 
   serve.py    PoseEstimator: preprocess, batched detector forward, pixels,
               patch -> world lift
@@ -34,6 +34,9 @@ disk:
   weights.py  JAX variables -> state_dicts; seeded weights; the ImageNet
               backbone init
   config.py   YAML / JSON config loading
+  parallel/   data parallelism: the process group (torchrun or
+              --coordinator) and the collectives of the data-parallel step
+              and the sharded eval
 """
 
 import torch as _torch

@@ -16,6 +16,10 @@ chip_smoke.py. Nothing here imports JAX.
       eval_result.txt as (key, number or None) per line.
   flat, bitwise_diffs
       leaf-by-leaf comparison of nested state dicts (checkpoints).
+  load_train_state
+      a train state given as flat arrays (the tests' carry of a JAX train
+      state, which a process without JAX reads from an npz) loaded into
+      the port's modules and optimizers.
   read_events, events_in
       a reader of the port's TensorBoard event files that needs no
       TensorBoard: every record's two CRCs checked; each event's step,
@@ -136,6 +140,35 @@ def bitwise_diffs(got: dict, want: dict) -> list:
         elif g != w:
             bad.append(k)
     return bad
+
+
+def load_train_state(spec, state, arrays: dict) -> None:
+    """Load a train state given as flat arrays into `spec`'s modules and
+    `state`: ``var/<module>.<name>`` parameters and BatchNorm statistics
+    (module detector, physique or discriminator); ``mu/det/<name>``,
+    ``nu/det/<name>`` the generator's Adam moments by TrainState.gen_names,
+    ``mu/disc/<name>``, ``nu/disc/<name>`` the discriminator's by
+    TrainState.disc_names, ``count/det`` and ``count/disc`` their update
+    counts; ``pending/<name>`` the carried discriminator gradient."""
+    def t(key):
+        return torch.as_tensor(np.asarray(arrays[key])).clone()
+
+    for prefix in ("detector", "physique", "discriminator"):
+        head = f"var/{prefix}."
+        getattr(spec, prefix).load_state_dict(
+            {k[len(head):]: t(k) for k in arrays if k.startswith(head)},
+            strict=False)
+    for tag, opt, names, params in (
+            ("det", state.opt_det, state.gen_names, state.gen_params),
+            ("disc", state.opt_disc, state.disc_names, state.disc_params)):
+        count = int(np.asarray(arrays[f"count/{tag}"]))
+        for n, p in zip(names, params):
+            opt.state[p] = {"step": torch.tensor(float(count)),
+                            "exp_avg": t(f"mu/{tag}/{n}"),
+                            "exp_avg_sq": t(f"nu/{tag}/{n}")}
+    state.det_updates = int(np.asarray(arrays["count/det"]))
+    state.disc_updates = int(np.asarray(arrays["count/disc"]))
+    state.pending_disc_grads = [t(f"pending/{n}") for n in state.disc_names]
 
 
 def _varint(buf: bytes, i: int) -> tuple[int, int]:

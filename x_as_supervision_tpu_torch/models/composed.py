@@ -24,6 +24,16 @@ whatever the config's cam_id_list, its world lift the reference's
 camera-free one (``_mono_world``), no ``kp_gt_world`` output, and no
 symmetry loss (a zero tensor where symmetry is configured). Left out: the
 remat modes (the port keeps every activation).
+
+Data parallelism (parallel/): in a process group each rank holds its rows
+of every camera's global batch, and each loss term is this rank's share of
+the global term, so that the shares sum to it (``C.data_share``: a mean
+over the global batch is the local mean over P). The minimum over
+hypotheses of batch means (symmetry, the pseudo stream) is chosen from the
+global means (ops/losses.py:share_of_min). The discriminator's dropout
+and use_aug's rotations draw at the global shape from the step's generator
+and take this rank's rows (``_rows``; they are camera-major, so not one
+block). Without a process group every term is the one-process value.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ import torch
 
 from ..ops import geometry as G
 from ..ops import losses as L
+from ..parallel import collectives as C
+from ..parallel import mesh
 
 
 def cal_links(parent_ids, line_select_ids=None, use_root=False,
@@ -160,17 +172,44 @@ def _lift(kps, batch: dict, ck: str, side: int, rep: int = 1):
         r("rot_world"), image_width=side, image_height=side, is_norm=True)
 
 
-def _disc(spec: GanSpec, poses, generator):
-    return spec.discriminator(poses[..., : spec.disc_sup_dim], generator)
+def _rows(nc: int, b: int, rep: int, device):
+    """None without a process group; else ``(n, index)``: this rank's rows
+    of the camera-major global batch of n = nc x (P b) x rep rows (each
+    camera's samples, each repeated `rep` times), b samples per camera
+    here, in this rank's order."""
+    if not C.is_distributed():
+        return None
+    p, r = mesh.process_count(), mesh.process_index()
+    # made on the device: a copy from the host would make it wait
+    index = torch.cat([torch.arange((c * p + r) * b * rep,
+                                    (c * p + r + 1) * b * rep, device=device)
+                       for c in range(nc)])
+    return nc * p * b * rep, index
 
 
-def _rotated(poses, generator, rot_u):
+def _disc(spec: GanSpec, poses, generator, rows=None):
+    return spec.discriminator(poses[..., : spec.disc_sup_dim], generator,
+                              rows)
+
+
+def _rotated(poses, generator, rot_u, rows=None):
     """The poses (N, K, 3) turned about z by the uniforms `rot_u` (N,), or
-    by uniforms drawn from `generator`."""
+    by uniforms drawn from `generator` (for the global batch's n rows and
+    this rank's taken, given `rows`)."""
     if rot_u is None:
-        rot_u = torch.rand(poses.shape[0], generator=generator,
-                           device=poses.device)
+        n = poses.shape[0] if rows is None else rows[0]
+        rot_u = torch.rand(n, generator=generator, device=poses.device)
+        if rows is not None:
+            rot_u = rot_u[rows[1]]
     return G.rotate_z(poses, rot_u)
+
+
+def _min_over_hypos(per_hypo):
+    """min over hypotheses (H,) of batch means (or, in a process group,
+    this rank's share of it: per_hypo are its shares)."""
+    if not C.is_distributed():
+        return torch.amin(per_hypo)
+    return L.share_of_min(per_hypo)
 
 
 def _mono_world(kps):
@@ -256,7 +295,8 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
                         kps_all[i, :, h, :, :2], is_3d=False) * 1e2
                         * w["kp_2d"])
                 per_hypo.append(val)
-            loss_sym = loss_sym + torch.amin(torch.stack(per_hypo))
+            loss_sym = loss_sym + _min_over_hypos(
+                C.data_share(torch.stack(per_hypo)))
         if not torch.is_tensor(loss_sym):
             # a sum over no camera: a tensor on the step's device, for the
             # trainer's one packed fetch of the metrics
@@ -269,17 +309,21 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
         pw = torch.stack([kps_world[c] for c in cams])  # (C, B, H, K, 3)
         pw = (pw - pw[:, :, :, :1, :]) / 1000.0
         flat = pw.reshape(nc * b * nh, *pw.shape[3:])
-        logits = _disc(spec, flat.detach(), generator).reshape(nc * b, nh, 1)
+        rows = _rows(nc, b, nh, flat.device)
+        logits = _disc(spec, flat.detach(), generator, rows).reshape(
+            nc * b, nh, 1)
         if not spec.use_aug:
             loss_gen = L.compute_disc_loss(logits, None) * nc
         else:
             # the rotated branch is not detached, as in the JAX package: it
             # alone carries a gradient into the detector
-            rot = _rotated(flat, generator, rot_u)
-            logits_rot = _disc(spec, rot, generator).reshape(nc * b, nh, 1)
+            rot = _rotated(flat, generator, rot_u, rows)
+            logits_rot = _disc(spec, rot, generator, rows).reshape(
+                nc * b, nh, 1)
             loss_gen = (L.compute_disc_loss(logits, None) * nc * 0.7
                         + L.compute_disc_loss(logits_rot, None) * nc * 0.3)
-        losses["smpl_gen"] = loss_gen * cfg["smpl_gen_loss"]["weight"]
+        losses["smpl_gen"] = (C.data_share(loss_gen)
+                              * cfg["smpl_gen_loss"]["weight"])
 
     if "smpl_pseudo_img_loss" in cfg:
         decode_p = spec.detector(_nchw(_stack(batch, cams, "pseudo_img")))
@@ -295,9 +339,10 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
                     outputs[f"pose_2d_pred_{ck}_pseudo"] = pred0
                     outputs[f"pose_3d_pred_{ck}_pseudo"] = _mono_world(pred0)
                     outputs[f"pose_3d_gt_{ck}_pseudo"] = _mono_world(gt[:1])
-            per_hypo = torch.stack([L.compute_supervision(pred_all[i, :, h], gt)
-                                    for h in range(nh)])
-            loss_pseudo = loss_pseudo + torch.amin(per_hypo)
+            per_hypo = C.data_share(torch.stack([
+                L.compute_supervision(pred_all[i, :, h], gt)
+                for h in range(nh)]))
+            loss_pseudo = loss_pseudo + _min_over_hypos(per_hypo)
             if h0w:
                 loss_pseudo = loss_pseudo + h0w * per_hypo[0]
         losses["smpl_pseudo_img"] = (loss_pseudo
@@ -316,8 +361,8 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
             for i, cam in enumerate(cams):
                 outputs[f"mask_physique_cam_{cam}"] = _first_nhwc(phy_all, i,
                                                                   b)
-        loss_phy = L.compute_mask_reconstruction_loss(
-            phy_all, gt_masks, weight=dis_map("physique_recons_loss")) * nc
+        loss_phy = C.data_share(L.compute_mask_reconstruction_loss(
+            phy_all, gt_masks, weight=dis_map("physique_recons_loss"))) * nc
         losses["physique_recons"] = (loss_phy
                                      * cfg["physique_recons_loss"]["weight"])
 
@@ -328,9 +373,11 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
         loss_rec = 0.0
         for i in range(nc):
             sl = slice(i * b, (i + 1) * b)
-            loss_rec = loss_rec + L.compute_mask_reconstruction_loss(
-                masks_all[sl], gt_masks[sl],
-                weight=None if weight is None else weight[sl], use_clip=True)
+            loss_rec = loss_rec + C.data_share(
+                L.compute_mask_reconstruction_loss(
+                    masks_all[sl], gt_masks[sl],
+                    weight=None if weight is None else weight[sl],
+                    use_clip=True))
         losses["reconstruction"] = loss_rec * cfg["recons_loss"]["weight"]
 
     return losses, decode
@@ -355,9 +402,11 @@ def discriminator_forward(spec: GanSpec, batch: dict, generator=None,
     pred = decode.kps.detach()  # (CB, H, K, 3)
     cb, nh = pred.shape[:2]
     smpl = _stack(batch, cams, "pseudo_joints")  # (CB, K, 3)
+    rows_pred = _rows(nc, cb // nc, nh, pred.device)
+    rows_smpl = _rows(nc, cb // nc, 1, pred.device)
     pred_logits = _disc(spec, pred.reshape(cb * nh, *pred.shape[2:]),
-                        generator).reshape(cb, nh, 1)
-    smpl_logits = _disc(spec, smpl, generator)
+                        generator, rows_pred).reshape(cb, nh, 1)
+    smpl_logits = _disc(spec, smpl, generator, rows_smpl)
     if outputs is not None:
         b = cb // nc
         for i, cam in enumerate(cams):
@@ -374,13 +423,13 @@ def discriminator_forward(spec: GanSpec, batch: dict, generator=None,
     if not spec.use_aug:
         loss = L.compute_disc_loss(pred_logits, smpl_logits) * nc
     else:
-        rot = _rotated(_mono_world(smpl), generator, rot_u)
+        rot = _rotated(_mono_world(smpl), generator, rot_u, rows_smpl)
         if outputs is not None:
             b = cb // nc
             for i, cam in enumerate(cams):
                 outputs[f"pose_smpl_3d_cam_{cam}_rot"] = rot[i * b:i * b + 1
                                                              ].detach()
-        rot_logits = _disc(spec, rot, generator)
+        rot_logits = _disc(spec, rot, generator, rows_smpl)
         loss = (L.compute_disc_loss(pred_logits, smpl_logits) * nc * 0.6
                 + L.compute_disc_loss(rot_logits, None) * nc * 0.4)
-    return loss * spec.loss_config["smpl_disc_loss"]["weight"]
+    return C.data_share(loss) * spec.loss_config["smpl_disc_loss"]["weight"]

@@ -12,6 +12,12 @@ aggregation. GraphLayerNorm normalizes each sample over its nodes and
 channels, as the JAX package does. Dropout draws from an explicit
 ``torch.Generator`` passed to ``forward``. Parameters are fp32 and so is the
 forward: the poses it scores are fp32 decode outputs.
+
+Data parallelism (parallel/): ``forward``'s ``rows`` says which rows of the
+global batch this rank's poses are, ``(n, index)``: dropout draws its mask
+at the global shape and takes those rows, so each rank draws what one
+process draws for them. StatelessBN takes its statistics over the global
+batch in a process group.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import collectives as C
 
 
 def skeleton_adjacency(parent_ids, child_ids, num_nodes: int,
@@ -96,15 +104,19 @@ class SAGEResidualBlock(nn.Module):
 
 
 def dropout(x, p: float, training: bool,
-            generator: torch.Generator | None = None):
+            generator: torch.Generator | None = None, rows=None):
     """Inverted dropout (flax's nn.Dropout): each value kept with
     probability 1 - p and scaled by 1 / (1 - p), the mask drawn from
-    `generator`; the identity outside training or at p = 0."""
+    `generator`; the identity outside training or at p = 0. `rows`
+    ``(n, index)``: x holds those rows of a global batch of n rows, and the
+    mask is drawn for all n and those rows taken."""
     if not training or p <= 0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < keep
+    shape = x.shape if rows is None else (rows[0], *x.shape[1:])
+    u = torch.rand(shape, generator=generator, device=x.device,
+                   dtype=x.dtype)
+    mask = (u if rows is None else u[rows[1]]) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -117,10 +129,11 @@ class FFNHeader(nn.Module):
         self.dense1 = nn.Linear(hidden, 1)
         self.p_dropout = p_dropout
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x, generator: torch.Generator | None = None,
+                rows=None):
         x = F.relu(self.dense0(x))
         return self.dense1(dropout(x, self.p_dropout, self.training,
-                                   generator))
+                                   generator, rows))
 
 
 class DenseGCNLayer(nn.Module):
@@ -147,7 +160,8 @@ def sym_normalize(adj, eps: float = 1e-12):
 class StatelessBN(nn.Module):
     """Per-channel batch normalization over (batch, node) of (B, N, C) with a
     learned affine and no running statistics: batch statistics in eval too
-    (the JAX package's _StatelessBN; not nn.BatchNorm1d)."""
+    (the JAX package's _StatelessBN; not nn.BatchNorm1d). In a process
+    group, the global batch's: two-pass, through two all-reduces."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -156,8 +170,14 @@ class StatelessBN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        mean = x.mean(dim=(0, 1), keepdim=True)
-        var = ((x - mean) ** 2).mean(dim=(0, 1), keepdim=True)
+        if C.is_distributed():
+            n = x.shape[0] * x.shape[1] * C.process_count()
+            mean = C.psum_data(x.sum(dim=(0, 1), keepdim=True)) / n
+            var = C.psum_data(((x - mean) ** 2).sum(dim=(0, 1),
+                                                    keepdim=True)) / n
+        else:
+            mean = x.mean(dim=(0, 1), keepdim=True)
+            var = ((x - mean) ** 2).mean(dim=(0, 1), keepdim=True)
         y = (x - mean) / torch.sqrt(var + self.eps)
         return y * self.weight + self.bias
 
@@ -203,8 +223,10 @@ class GCNDiscriminatorDecouple(nn.Module):
         x = getattr(self, f"{tag}_final")(x, self.rownorm)
         return x.reshape(x.shape[0], -1)
 
-    def forward(self, keypoints, generator: torch.Generator | None = None):
-        """(N, num_nodes, disc_sup_dim) poses -> (N, 1) logits."""
+    def forward(self, keypoints, generator: torch.Generator | None = None,
+                rows=None):
+        """(N, num_nodes, disc_sup_dim) poses -> (N, 1) logits; `rows`:
+        the poses' rows of the global batch (dropout's draws)."""
         b, _, c = keypoints.shape
         start = keypoints[:, self.child_ids, :]
         end = keypoints[:, self.parent_ids, :]
@@ -217,7 +239,7 @@ class GCNDiscriminatorDecouple(nn.Module):
             kp_in, bone_in = keypoints, bone
         feats = torch.cat([self._stream(kp_in, "joint"),
                            self._stream(bone_in, "bone")], dim=-1)
-        return self.header(feats, generator)
+        return self.header(feats, generator, rows)
 
 
 class GCNSAGEDiscriminator(nn.Module):
@@ -252,8 +274,10 @@ class GCNSAGEDiscriminator(nn.Module):
                                        single_layer=True)
         self.header = nn.Linear(num_nodes * output_dim, 1)
 
-    def forward(self, keypoints, generator: torch.Generator | None = None):
-        """(N, num_nodes, disc_sup_dim) poses -> (N, 1) logits."""
+    def forward(self, keypoints, generator: torch.Generator | None = None,
+                rows=None):
+        """(N, num_nodes, disc_sup_dim) poses -> (N, 1) logits (no
+        dropout, so `rows` is unused)."""
         x = keypoints
         if self.pe is not None:
             x = torch.cat([x, self.pe.expand(x.shape[0], -1, -1)], dim=-1)
@@ -320,8 +344,10 @@ class GCNDiscriminator(nn.Module):
             adj = adj + 2.0 * torch.eye(n, dtype=adj.dtype, device=adj.device)
         return sym_normalize(adj)
 
-    def forward(self, keypoints, generator: torch.Generator | None = None):
-        """(N, num_nodes, disc_sup_dim) poses -> (N, 1) logits."""
+    def forward(self, keypoints, generator: torch.Generator | None = None,
+                rows=None):
+        """(N, num_nodes, disc_sup_dim) poses -> (N, 1) logits; `rows`:
+        the poses' rows of the global batch (dropout's draws)."""
         adj = self.adjacency(keypoints)
         x = self.input(keypoints)
         gcn = iter(self.gcn)
@@ -338,7 +364,7 @@ class GCNDiscriminator(nn.Module):
                     if self.bns:
                         y = next(bns)(y)
                     y = dropout(F.relu(y), self.p_dropout, self.training,
-                                generator)
+                                generator, rows)
                 x = y + res
             x = F.relu(next(gcn)(x, adj))
         return self.header(x.reshape(x.shape[0], -1))

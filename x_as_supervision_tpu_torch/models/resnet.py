@@ -36,6 +36,21 @@ statistics, so it is the same either way, and the parameters and buffers
 keep their names. Under G groups the link runs once per camera slice, each
 launch with that camera's folded statistics, returning that camera's
 (sum, sumsq).
+
+Data parallelism (parallel/): in a process group every train-mode
+statistic is taken over the global batch, each camera slice with the same
+camera's slices on the other ranks, so P ranks compute what one process
+computes at the global batch. BatchNorm2d runs ``_SyncedBatchNorm``: each
+rank's statistics of its rows combined exactly over the ranks in the
+forward and the two gradient sums all-reduced in the backward (the
+SyncBatchNorm recipe, through PyTorch's fused BatchNorm kernels on the
+card; the biased variance goes into the running statistics, flax's rule,
+where nn.SyncBatchNorm folds the unbiased one).
+The link's bn1 takes its two-pass statistics the same way
+(``synced_moments``), and the link's (sum, sumsq) output is all-reduced,
+all camera slices stacked in one call, before bn2 folds it with the global
+count. The kernel itself does not change. Without a process group none of
+this runs and no collective is called.
 """
 
 from __future__ import annotations
@@ -45,6 +60,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv_bn import fused_link, make_stats_fold
+from ..parallel import collectives as C
 
 # {depth: (block kind, blocks per stage)}
 RESNET_SPEC = {
@@ -99,16 +115,133 @@ def _cat(parts):
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
+# the reduced dimensions of a camera-major batch split into its camera
+# slices, (G, B, C, H, W)
+_SLICE_DIMS = (1, 3, 4)
+
+
+def _per_channel(v):
+    """(G, C) -> (G, 1, C, 1, 1), against (G, B, C, H, W)."""
+    return v[:, None, :, None, None]
+
+
+def _per_sample(v, b: int):
+    """(G, C) -> (G B, C, 1, 1): each camera slice's row for each of its b
+    samples, against the camera-major (G B, C, H, W)."""
+    return v.repeat_interleave(b, dim=0)[:, :, None, None]
+
+
+def _memory_format(x):
+    return (torch.channels_last
+            if x.is_contiguous(memory_format=torch.channels_last)
+            else torch.contiguous_format)
+
+
+def _combine_moments(mean_l, var_l):
+    """The global batch's (mean, biased variance), each (G, C) fp32, from
+    every rank's own over equal counts: the mean of the means, then of
+    var + (mean - global mean)^2 (Chan's exact combine), two all-reduces."""
+    p = C.process_count()
+    mean = C.all_reduce_(mean_l.clone()) / p
+    var = C.all_reduce_(var_l + (mean_l - mean) ** 2) / p
+    return mean, var
+
+
+class _SyncedBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of each of `groups` camera slices over the
+    global batch, returning y in x's type and the (G, C) batch mean and
+    biased variance (fp32). Forward: each rank's statistics of its rows,
+    combined through two all-reduces; backward: one all-reduce, of the two
+    gradient sums. On a CUDA tensor every pass over the activations is one
+    of PyTorch's fused BatchNorm kernels, those of its native BatchNorm
+    and nn.SyncBatchNorm (``batch_norm_stats`` (Welford),
+    ``batch_norm_elemt``, ``batch_norm_backward_reduce`` and ``_elemt``,
+    which exist for CUDA only); on the CPU their plain versions. Saves x in
+    its own type."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups: int, eps: float):
+        x = x.contiguous(memory_format=_memory_format(x))
+        slices = camera_slices(x, groups)
+        b = slices[0].shape[0]
+        n = b * x.shape[2] * x.shape[3] * C.process_count()
+        if x.is_cuda:
+            local = [torch.batch_norm_stats(xs, eps) for xs in slices]
+            mean_l = torch.stack([m for m, _ in local])
+            var_l = torch.stack([i for _, i in local]) ** -2 - eps
+        else:
+            var_l, mean_l = torch.var_mean(
+                x.float().unflatten(0, (groups, -1)), dim=_SLICE_DIMS,
+                correction=0)
+        mean, var = _combine_moments(mean_l, var_l)
+        invstd = torch.rsqrt(var + eps)
+        if x.is_cuda:
+            y = _cat([torch.batch_norm_elemt(xs, weight, bias, m, i, eps)
+                      for xs, m, i in zip(slices, mean, invstd)])
+        else:
+            # y in x's 4-D shape (not a view: ReLU works on it in place)
+            y = ((x.float() - _per_sample(mean, b))
+                 * _per_sample(invstd * weight, b)
+                 + bias.view(1, -1, 1, 1)).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.groups, ctx.n = groups, n
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        if x.is_cuda:
+            gys = camera_slices(gy.contiguous(memory_format=_memory_format(x)),
+                                ctx.groups)
+            xs = camera_slices(x, ctx.groups)
+            red = [torch.batch_norm_backward_reduce(g, s, m, i, weight,
+                                                    True, True, True)
+                   for g, s, m, i in zip(gys, xs, mean, invstd)]
+            # (G, 2, C): the sums of dy and of dy (x - mean) on this rank
+            sums = torch.stack([torch.stack(r[:2]) for r in red])
+            # the affine's gradients from this rank's rows: the step sums
+            # them over the ranks with the other gradients
+            gweight = sum(r[2] for r in red)
+            gbias = sum(r[3] for r in red)
+            C.all_reduce_(sums)
+            # filled on the card: a tensor copied from the host would make
+            # the host wait for the card at every BatchNorm
+            count = torch.full((1,), ctx.n, dtype=torch.int32,
+                               device=x.device)
+            gx = _cat([torch.batch_norm_backward_elemt(
+                g, s, m, i, weight, t[0], t[1], count)
+                for g, s, m, i, t in zip(gys, xs, mean, invstd, sums)])
+            return gx, gweight, gbias, None, None
+        xhat = ((x.unflatten(0, (ctx.groups, -1)).float()
+                 - _per_channel(mean)) * _per_channel(invstd))
+        g = gy.unflatten(0, (ctx.groups, -1)).float()
+        sums = torch.stack([g.sum(dim=_SLICE_DIMS),
+                            (g * xhat).sum(dim=_SLICE_DIMS)])  # (2, G, C)
+        gweight, gbias = sums[1].sum(0), sums[0].sum(0)
+        tot = C.all_reduce_(sums.clone()) / ctx.n
+        gx = ((g - _per_channel(tot[0]) - xhat * _per_channel(tot[1]))
+              * _per_channel(invstd * weight))
+        return gx.to(x.dtype).flatten(0, 1), gweight, gbias, None, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's train-mode semantics (see the module
     docstring), per camera slice under ``groups`` > 1; eval is
-    nn.BatchNorm2d's."""
+    nn.BatchNorm2d's. In a process group the train-mode statistics are the
+    global batch's (``_SyncedBatchNorm``)."""
 
     groups = 1
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if C.is_distributed():
+            y, mean, var = _SyncedBatchNorm.apply(
+                x, self.weight, self.bias, self.groups, self.eps)
+            for m, v in zip(mean, var):
+                update_running_stats(self, m, v)
+            return y
         ys = []
         for xs in camera_slices(x, self.groups):
             y, mean, invstd = torch.native_batch_norm(
@@ -155,11 +288,25 @@ def fold_batch_stats(bn: nn.BatchNorm2d, x):
     return inv, bn.bias - mean * inv
 
 
-def apply_stats(bn: nn.BatchNorm2d, y, stats):
-    """bn(y) in train mode from y's (sum, sumsq) (the link's stats output;
-    the JAX package's _StatsBN 'apply'), differentiable through stats, and
-    the running statistics updated."""
-    n = y.shape[0] * y.shape[2] * y.shape[3]
+def synced_moments(x, groups: int):
+    """(mean, var), each (G, C) fp32, of each of `groups` camera slices of
+    x over the global batch (that camera's slices on every rank): two-pass,
+    biased, differentiable through the two all-reduces."""
+    xf = x.float().unflatten(0, (groups, -1))
+    n = xf.shape[1] * xf.shape[3] * xf.shape[4] * C.process_count()
+    mean = C.psum_data(xf.sum(dim=_SLICE_DIMS)) / n
+    var = C.psum_data(((xf - _per_channel(mean)) ** 2).sum(
+        dim=_SLICE_DIMS)) / n
+    return mean, var
+
+
+def apply_stats(bn: nn.BatchNorm2d, y, stats, n: int | None = None):
+    """bn(y) in train mode from y's (sum, sumsq) over `n` values (the
+    link's stats output; the JAX package's _StatsBN 'apply'; n defaults to
+    y's own count), differentiable through stats, and the running
+    statistics updated."""
+    if n is None:
+        n = y.shape[0] * y.shape[2] * y.shape[3]
     scale, shift = make_stats_fold(stats, bn.weight, bn.bias, n, bn.eps)
     mean = stats[0] / n
     update_running_stats(bn, mean,
@@ -210,9 +357,29 @@ class Bottleneck(nn.Module):
         # the JAX package's Bottleneck.fuse_bn region (models/resnet.py)
         self.fused_link = stride == 1 and planes >= 256
 
+    def _synced_link(self, y):
+        """The train-mode link in a process group: bn1's statistics over
+        the global batch, one launch per camera slice, and the slices'
+        (sum, sumsq) all-reduced in one call before bn2 folds them."""
+        g = self.bn1.groups
+        mean, var = synced_moments(y, g)
+        for m, v in zip(mean, var):
+            update_running_stats(self.bn1, m, v)
+        scale = self.bn1.weight * torch.rsqrt(var + self.bn1.eps)  # (G, C)
+        shift = self.bn1.bias - mean * scale
+        outs = [fused_link(ys, self.conv2.weight, scale[i], shift[i])
+                for i, ys in enumerate(camera_slices(y, g))]
+        stats = C.psum_data(torch.stack([s for _, s in outs]))  # (G, 2, C)
+        ys = outs[0][0]
+        n = ys.shape[0] * ys.shape[2] * ys.shape[3] * C.process_count()
+        return _cat([apply_stats(self.bn2, ys, st, n)
+                     for (ys, _), st in zip(outs, stats)])
+
     def forward(self, x):
         y = self.conv1(x)
-        if self.fused_link and self.training:
+        if self.fused_link and self.training and C.is_distributed():
+            y = self._synced_link(y)
+        elif self.fused_link and self.training:
             # one launch per camera slice, each with its own statistics
             parts = []
             for ys in camera_slices(y, self.bn1.groups):

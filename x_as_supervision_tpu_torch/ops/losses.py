@@ -5,11 +5,37 @@ Reductions over hypotheses use ``torch.amin``, which splits the gradient
 evenly among tied minima as JAX's ``min`` does (``torch.min(dim)`` would
 send it to one index); ties are real here, since hypotheses whose depth
 peaks coincide give equal values.
+
+In a process group (parallel/) the losses that are not linear in the batch
+take their batch-wide parts over the global batch: the active-pixel
+fraction of ``use_clip`` and the minimum over hypotheses of batch means
+(``share_of_min``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel import collectives as C
+
+
+def global_mean(x):
+    """Mean of x over the global batch (the shards are equal): x.mean()
+    without a process group."""
+    if not C.is_distributed():
+        return x.mean()
+    return C.psum_data(x.sum()) / (x.numel() * C.process_count())
+
+
+def share_of_min(shares):
+    """This rank's share of min_h G[h], where G = the sum over the ranks of
+    `shares` (H,), each rank's shares of H batch means: the minimum is
+    chosen from G (the same on every rank), and its gradient split evenly
+    among tied minima as torch.amin splits it. Summed over the ranks it is
+    min_h G[h]."""
+    total = C.psum_data(shares.detach())
+    tied = (total == total.min()).to(shares.dtype)
+    return (shares * tied).sum() / tied.sum()
 
 
 def compute_mask_reconstruction_loss(mask, gt, weight=None,
@@ -18,16 +44,16 @@ def compute_mask_reconstruction_loss(mask, gt, weight=None,
     asymmetric ``use_clip``:
 
       * weight None: the MSE is reduced to a scalar first, and use_clip
-        multiplies it by the active-pixel fraction mean(mask > 0.1), which
-        carries no gradient: every pixel gets the plain MSE gradient, scaled
-        by that fraction.
+        multiplies it by the active-pixel fraction mean(mask > 0.1) (over
+        the global batch in a process group), which carries no gradient:
+        every pixel gets the plain MSE gradient, scaled by that fraction.
       * weight given: elementwise MSE, masked by (mask > 0.1) under
         use_clip, weighted, then meaned: only active pixels get a gradient.
     """
     if weight is None:
         loss = ((mask - gt) ** 2).mean()
         if use_clip:
-            loss = loss * (mask > 0.1).to(loss.dtype).mean()
+            loss = loss * global_mean((mask > 0.1).to(loss.dtype))
         return loss
     loss = (mask - gt) ** 2
     if use_clip:

@@ -4,7 +4,8 @@
         [--synthetic] [--seed S] [--epoch N] [--steps N] [--batch_size B] \\
         [--worker N] [--backbone_init FILE] [--log_dir DIR] \\
         [--checkpoint <ckpt_dir>|auto] [--finetune] [--extra_tag T] \\
-        [--device cpu] [--fp32]
+        [--device cpu] [--fp32] \\
+        [--coordinator HOST:PORT --num_processes P --process_id R]
 
 Without ``--synthetic`` it trains on the dataset that the config's
 ``dataset_params`` name on disk (``hm36``, ``mpi_inf_3dhp`` or
@@ -16,6 +17,17 @@ clock and names the run ``seed_rand_``. ``--checkpoint`` resumes from a
 checkpoint (in its run directory), or with ``--finetune`` takes its weights
 into a new run; ``auto`` is the newest checkpoint of the last run of this
 config under ``--log_dir``.
+
+Data parallelism: under torchrun (one process per card)
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \\
+        -m x_as_supervision_tpu_torch.train --config <cfg> ...
+
+or with the JAX CLI's flags, one command per process
+(``--coordinator host:port --num_processes P --process_id r``), P
+processes train at the global batch ``train_params.batch_size`` (see
+train/trainer.py for the rules by rank). NCCL joins the cards; with
+``--device cpu`` the ranks run on the CPU over gloo.
 """
 
 from __future__ import annotations
@@ -58,6 +70,13 @@ def base_parser(description: str) -> ArgumentParser:
                    help="torch device (default: the CUDA card)")
     p.add_argument("--fp32", action="store_true",
                    help="compute in fp32 instead of bf16")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 for a multi-process run "
+                        "(else torchrun's environment, else one process)")
+    p.add_argument("--num_processes", default=None, type=int,
+                   help="world size, with --coordinator")
+    p.add_argument("--process_id", default=None, type=int,
+                   help="this process's rank, with --coordinator")
     return p
 
 
@@ -68,24 +87,35 @@ def run(opt, make_dataset, backbone_init: str | None = None):
     import torch
 
     from ..config import apply_overrides, load_config
+    from ..parallel import mesh
     from .logging import create_writer
-    from .trainer import Trainer, auto_checkpoint, create_run_dir
+    from .trainer import Trainer, auto_checkpoint, create_run_dir, draw_seed
 
+    mesh.initialize_multihost(opt.coordinator, opt.num_processes,
+                              opt.process_id,
+                              backend=mesh.default_backend(opt.device))
+    rank0 = mesh.process_index() == 0
     config = apply_overrides(load_config(opt.config), opt.batch_size,
                              opt.epoch)
-    setup_seed(opt.seed)
+    seed = opt.seed
+    if seed == -1 and mesh.is_distributed():
+        # every rank must build the same dataset: rank 0's clock seeds all
+        seed = draw_seed(-1)
+    setup_seed(seed)
     checkpoint = opt.checkpoint
     if checkpoint == "auto":
         checkpoint = auto_checkpoint(opt.log_dir, opt.config)
-        print(f"auto-resume from {checkpoint}")
+        if rank0:
+            print(f"auto-resume from {checkpoint}")
     save_dir = create_run_dir(opt.log_dir, opt.config, opt.seed,
                               opt.extra_tag, opt.finetune, checkpoint)
-    tb_logger = create_writer(os.path.join(save_dir, "tensorboard"))
+    tb_logger = (create_writer(os.path.join(save_dir, "tensorboard"))
+                 if rank0 else None)
     try:
         # built here, as train.py builds it: the subset policies draw from
         # the global numpy state that setup_seed seeded
         dataset = make_dataset(config)
-        trainer = Trainer(config, dataset, seed=opt.seed,
+        trainer = Trainer(config, dataset, seed=seed,
                           dtype=torch.float32 if opt.fp32 else torch.bfloat16,
                           device=opt.device, save_dir=save_dir,
                           checkpoint_path=checkpoint,
@@ -94,7 +124,8 @@ def run(opt, make_dataset, backbone_init: str | None = None):
                           backbone_init=backbone_init)
         trainer.history = trainer.train(opt.steps, tb_logger=tb_logger)
     finally:
-        tb_logger.close()
+        if tb_logger is not None:
+            tb_logger.close()
     trainer.tb_logger = tb_logger
     return trainer
 
@@ -117,3 +148,6 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    from ..parallel.mesh import shutdown
+
+    shutdown()

@@ -18,6 +18,10 @@ package's name) holding ``state.pt``, which ``torch.load(weights_only=True)``
 reads: tensors, numbers, strings, lists and dicts only. Every load names
 its ``map_location``, so a checkpoint saved on the card restores on the CPU
 and the other way round.
+
+Data parallelism (parallel/): every rank holds the same state, so rank 0
+alone writes it and every rank waits at a barrier until the file is whole;
+every rank restores from that one file.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import re
 
 import torch
 
+from ..parallel import mesh
 from .state import TrainState
 
 _CKPT_RE = re.compile(r"^(\d{5})_ckpt$")
@@ -73,12 +78,15 @@ def state_dict(state: TrainState) -> dict:
 
 def save_checkpoint(save_dir: str, epoch: int, state: TrainState) -> str:
     """Writes ``{epoch:05d}_ckpt/state.pt`` (through a temporary file, so a
-    checkpoint that exists is whole); returns the directory."""
+    checkpoint that exists is whole; in a process group rank 0 writes and
+    every rank returns after it has); returns the directory."""
     path = ckpt_path(save_dir, epoch)
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(state_dict(state), tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
+    if mesh.process_index() == 0:
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, STATE_FILE + ".tmp")
+        torch.save(state_dict(state), tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+    mesh.barrier()
     return path
 
 

@@ -14,8 +14,16 @@ Kept from the JAX package (and its reference, eval.py:65-298):
   * eval_result.txt has the same lines, in the same order, with the same
     text.
 Given a writer, ``eval`` logs each batch's pose panels as the JAX package
-does (``_log_batch_images``). Left out: the per-process sharding of batches
-and the cross-host reduction (one process walks every batch).
+does (``_log_batch_images``).
+
+In a process group (parallel/) the batches are sharded as the JAX
+package's default ``shard_across_processes=True`` shards them: process p
+of P walks batches p, p + P, ... (the reference's DistributedSampler).
+``record(..., reduce_hosts=True)`` sums the tables, the ambiguity sum and
+the batch count over the processes before it writes (the JAX package
+averages them, which gives the same ratios up to the count tables' 1e-8
+guard; the sum gives the one-process tables themselves), so every process
+holds the one-process result and process 0 writes eval_result.txt.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import torch
 
 from ..models.composed import preprocess_batch
 from ..ops import geometry as G
+from ..parallel import collectives as C
+from ..parallel import mesh
 from ..serve import resolve_device
 from . import eval_utils as EU
 from . import metrics as MET
@@ -104,9 +114,11 @@ class Evaluator:
         """detector: the port's detector (models/detector.py) with its
         weights, moved to `device` and put in eval mode; dataset: batches
         with the cam_<id>_* schema (data/synthetic.py). Runs on the CUDA
-        card unless `device` names another."""
+        card (this rank's, in a process group) unless `device` names
+        another. In a process group, process p walks batches p, p + P,
+        ... (``my_batches``)."""
         self.config = config
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.rank_device(device))
         self.detector = detector.to(self.device).eval()
         self.dataset = dataset
         self.log_dir = log_dir
@@ -136,6 +148,8 @@ class Evaluator:
         )
         self.batch_size = batch_size or config["train_params"]["batch_size"]
         self.num_batches = max(1, len(dataset) // self.batch_size)
+        self.my_batches = list(range(mesh.process_index(), self.num_batches,
+                                     mesh.process_count()))
         # per batch of the last eval(): the device step's ms between two
         # CUDA events (on the card only), and the eval's wall seconds
         self.step_ms: list[float] = []
@@ -270,8 +284,9 @@ class Evaluator:
     def eval(self, mode: str = "best", tb_log=None, tb_pair_ids=None,
              tb_parent_ids=None):
         """Walks the batches; returns the tables (rec2d, cnt2d, rec3d, cnt3d,
-        rec3dt, cnt3dt, ambiguity) that record() writes. With `tb_log`
-        each batch's panels go there, at the batch's index."""
+        rec3dt, cnt3dt, ambiguity) of this process's batches
+        (``my_batches``) that record() writes. With `tb_log` each batch's
+        panels go there, at the batch's index."""
         (rec2d, cnt2d, rec3d, cnt3d, rec3dt, cnt3dt) = _new_tables(
             self.cal_per_act
         )
@@ -287,7 +302,7 @@ class Evaluator:
         timed = self.device.type == "cuda"
         self.step_ms = []
         t0 = time.perf_counter()
-        for b in range(self.num_batches):
+        for b in self.my_batches:
             batch = self.dataset.batch(b * self.batch_size, self.batch_size)
             act_tags = batch.pop("act", ["act_02"] * self.batch_size)
             dev = self.to_device(batch)
@@ -376,12 +391,28 @@ class Evaluator:
 
     # ---------------- reporting ----------------
 
-    def record(self, rec2d, cnt2d, rec3d, cnt3d, rec3dt, cnt3dt, ambiguity):
+    def record(self, rec2d, cnt2d, rec3d, cnt3d, rec3dt, cnt3dt, ambiguity,
+               reduce_hosts: bool = False):
         """Print and write eval/eval_result.txt in the reference's format
-        (reference: eval.py:206-298); returns its path."""
+        (reference: eval.py:206-298); returns its path. reduce_hosts: the
+        tables, the ambiguity sum and the batch count summed over the
+        processes first (together, so the ratio is the global one even
+        where the shards are unequal), every process calling; process 0
+        prints and writes."""
+        batch_count = float(len(self.my_batches))
+        if reduce_hosts:
+            (rec2d, cnt2d, rec3d, cnt3d, rec3dt, cnt3dt, ambiguity,
+             batch_count) = C.cross_host_sum(
+                (rec2d, cnt2d, rec3d, cnt3d, rec3dt, cnt3dt, ambiguity,
+                 batch_count))
         eval_dir = os.path.join(self.log_dir, "eval")
-        os.makedirs(eval_dir, exist_ok=True)
         path = os.path.join(eval_dir, "eval_result.txt")
+        # over this process's batches, or over all of them once reduced
+        ratio = ambiguity / max(1.0, batch_count) / len(self.cam_id_list)
+        self.last_ambiguity_ratio = float(ratio)
+        if mesh.process_index() != 0:
+            return path
+        os.makedirs(eval_dir, exist_ok=True)
 
         if self.cal_per_act:
             full, select = EU.cal_per_class_error(rec2d, cnt2d)
@@ -426,9 +457,6 @@ class Evaluator:
                     f.write(f"{key}: {val / denom}"
                             + (" %\n" if key in ("pck", "auc") else "\n"))
 
-        ratio = ambiguity / max(1.0, float(self.num_batches)) / len(
-            self.cam_id_list)
-        self.last_ambiguity_ratio = float(ratio)
         print(f"Results saved in {path}")
         print(f"Ambiguity Ratio:{ratio}")
         return path

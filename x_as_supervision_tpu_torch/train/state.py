@@ -20,11 +20,22 @@ phase reuses the generator phase's camera forward, and the generator's
 gradients are taken at the pre-update discriminator parameters, as in the
 JAX package; with ``model_params.fuse_gan_step`` false the iteration is a
 discriminator-only step, then a generator-only one, as there.
+
+Data parallelism (parallel/): in a process group each rank's losses are
+its shares of the global losses (models/composed.py), and before Adam the
+generator's gradients, the discriminator's and the discriminator gradient
+that the generator's loss leaves to be carried are summed over the ranks in
+one flat all-reduce (``C.psum_flat``). Every rank then applies the same
+update, and the carried gradient is the global one. The metrics returned
+are global values (one more small all-reduce). Without a process group
+nothing of this runs.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel import collectives as C
 
 from ..models.composed import (
     GanSpec,
@@ -133,6 +144,17 @@ def _metrics(total, losses, loss_disc=None) -> dict:
     return metrics
 
 
+def _global(metrics: dict) -> dict:
+    """The metrics (this rank's shares) summed over the ranks in one
+    all-reduce: the global values. The dict itself without a process
+    group."""
+    if not C.is_distributed() or not metrics:
+        return metrics
+    keys = sorted(metrics)
+    total = C.psum_data(torch.stack([metrics[k].float() for k in keys]))
+    return dict(zip(keys, total.unbind()))
+
+
 def _update_disc(state: TrainState, grads) -> None:
     grads = [g + c for g, c in zip(grads, state.pending_disc_grads)]
     _apply(state.opt_disc, state.disc_params, grads,
@@ -151,7 +173,8 @@ def train_step(state: TrainState, batch: dict,
                do_disc: bool = True, do_gen: bool = True,
                with_outputs: bool = False, rot_draws: dict | None = None):
     """One iteration on `batch` (tensors on the modules' device); returns
-    the scalar metrics (loss_total, loss/<name>, loss_disc) as tensors, and
+    the scalar metrics (loss_total, loss/<name>, loss_disc; global values)
+    as tensors, and
     with `with_outputs` (metrics, outputs): the visualization outputs of
     both phases (models/composed.py), the discriminator's first, as the
     JAX package merges them. `generator` drives the discriminators'
@@ -172,7 +195,9 @@ def train_step(state: TrainState, batch: dict,
         loss_disc = discriminator_forward(spec, batch, generator,
                                           precomputed_decode=decode,
                                           outputs=d_out, rot_u=rot_disc)
-        _update_disc(state, _grads(loss_disc, state.disc_params))
+        g_gen, g_disc, d_grads = C.psum_flat(
+            g_gen, g_disc, _grads(loss_disc, state.disc_params))
+        _update_disc(state, d_grads)
         _update_gen(state, g_gen)
         state.pending_disc_grads = g_disc
         metrics = _metrics(total, losses, loss_disc)
@@ -180,18 +205,21 @@ def train_step(state: TrainState, batch: dict,
         if do_disc and has_disc:
             loss_disc = discriminator_forward(spec, batch, generator,
                                               outputs=d_out, rot_u=rot_disc)
-            _update_disc(state, _grads(loss_disc, state.disc_params))
+            (d_grads,) = C.psum_flat(_grads(loss_disc, state.disc_params))
+            _update_disc(state, d_grads)
             state.pending_disc_grads = [torch.zeros_like(p)
                                         for p in state.disc_params]
             metrics["loss_disc"] = loss_disc.detach()
         if do_gen:
             total, losses, _, g_gen, g_disc = _gen_losses(
                 state, batch, generator, g_out, rot_gen)
+            g_gen, g_disc = C.psum_flat(g_gen, g_disc)
             _update_gen(state, g_gen)
             state.pending_disc_grads = [
                 c + g for c, g in zip(state.pending_disc_grads, g_disc)]
             metrics.update(_metrics(total, losses))
     state.step += 1
+    metrics = _global(metrics)
     if with_outputs:
         return metrics, {**d_out, **g_out}
     return metrics

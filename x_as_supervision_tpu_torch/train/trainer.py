@@ -1,22 +1,37 @@
-"""Training loop of the port (the JAX package's train/trainer.py, without
-its multi-host mesh): the run directory, seeded modules (a seed of -1 taken
-from the clock), the ImageNet backbone initialization, the epoch-shuffled
-prefetching loader, the GAN update cadence, a per-step dropout generator,
-TensorBoard scalars every ``log_interval`` steps and image panels every
-``lcm(50, log_interval)``, the step timer, an optional profiler trace, and a
-checkpoint every ``checkpoint_freq`` epochs and at the last one, with
-resume and finetune from one.
+"""Training loop of the port (the JAX package's train/trainer.py): the run
+directory, seeded modules (a seed of -1 taken from the clock), the ImageNet
+backbone initialization, the epoch-shuffled prefetching loader, the GAN
+update cadence, a per-step dropout generator, TensorBoard scalars every
+``log_interval`` steps and image panels every ``lcm(50, log_interval)``,
+the step timer, an optional profiler trace, and a checkpoint every
+``checkpoint_freq`` epochs and at the last one, with resume and finetune
+from one.
 
     python -m x_as_supervision_tpu_torch.train --config <yaml|json> \\
         [--synthetic] [--seed S] [--epoch N] [--steps N] [--batch_size B] \\
         [--worker N] [--backbone_init FILE] [--log_dir DIR] \\
         [--checkpoint <ckpt_dir>|auto] [--finetune] [--extra_tag T] \\
-        [--device cpu] [--fp32]
+        [--device cpu] [--fp32] \\
+        [--coordinator HOST:PORT --num_processes P --process_id R]
 
 It trains on the CUDA card unless given ``--device cpu``; there the kernels'
 plain versions run. A resumed run takes the same steps as one that was not
 interrupted: epoch e's batches follow from the seed and e, and each step's
 dropout generator from the seed and the step.
+
+Data parallelism (parallel/; launched by torchrun or the ``--coordinator``
+flags): P processes, one per card, compute what one process computes at the
+global batch ``train_params.batch_size``. The rules by rank:
+
+  * every rank trains on its own card (``cuda:<local rank>``) and its own
+    rows of each global batch (the loader's shard ``process_index()`` of
+    ``process_count()``), with the same modules, initialized from the same
+    seed: ``--seed -1`` is drawn from rank 0's clock and broadcast;
+  * the run directory and ``--checkpoint auto`` are decided on rank 0 and
+    broadcast; every rank restores from the same checkpoint file;
+  * rank 0 alone prints the step lines and writes TensorBoard, the
+    profiler trace and the checkpoints; a barrier follows each save;
+  * every rank's metrics are the global values.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ import torch
 
 from .. import weights
 from ..data.loader import BatchLoader
+from ..parallel import mesh
 from ..serve import resolve_device
 from . import checkpoint as ckpt
 from .evaluator import fetch
@@ -55,19 +71,33 @@ def create_run_dir(log_root: str, config_path: str, seed: int,
         name += "_FINETUNE"
     stamp = time.strftime("%d_%m_%y_%H.%M.%S", time.gmtime())
     run_dir = os.path.join(log_root, name + "_" + seed_tag + extra_tag + stamp)
-    os.makedirs(run_dir, exist_ok=True)
-    dst = os.path.join(run_dir, os.path.basename(config_path))
-    if os.path.isfile(config_path) and not os.path.exists(dst):
-        copy_file(config_path, run_dir)
+    # one name on every rank (their clocks may differ): rank 0's
+    run_dir = mesh.broadcast_object(run_dir)
+    if mesh.process_index() == 0:
+        os.makedirs(run_dir, exist_ok=True)
+        dst = os.path.join(run_dir, os.path.basename(config_path))
+        if os.path.isfile(config_path) and not os.path.exists(dst):
+            copy_file(config_path, run_dir)
     return run_dir
 
 
 def auto_checkpoint(log_root: str, config_path: str) -> str | None:
     """``--checkpoint auto``: the newest checkpoint of the last run of this
-    config under `log_root` (run directories in name order), or None."""
-    name = os.path.basename(config_path).split(".")[0]
-    runs = sorted(glob.glob(os.path.join(log_root, name + "_*")))
-    return ckpt.latest_checkpoint(runs[-1]) if runs else None
+    config under `log_root` (run directories in name order), or None; rank
+    0's answer on every rank."""
+    found = None
+    if mesh.process_index() == 0:
+        name = os.path.basename(config_path).split(".")[0]
+        runs = sorted(glob.glob(os.path.join(log_root, name + "_*")))
+        found = ckpt.latest_checkpoint(runs[-1]) if runs else None
+    return mesh.broadcast_object(found)
+
+
+def draw_seed(seed: int) -> int:
+    """The run's seed: `seed`, or for -1 one from the clock; rank 0's on
+    every rank."""
+    return mesh.broadcast_object(
+        seed if seed != -1 else int(time.time()) % (2**31))
 
 
 def update_intervals(config: dict) -> tuple[int, int]:
@@ -110,8 +140,9 @@ class Trainer:
         self.config = config
         self.save_dir = save_dir
         self.dataset = dataset
-        self.device = resolve_device(device)
-        self.seed = seed if seed != -1 else int(time.time()) % (2**31)
+        self.device = resolve_device(mesh.rank_device(device))
+        self.seed = draw_seed(seed)
+        self.rank = mesh.process_index()
         tp = config["train_params"]
         self.batch_size = tp["batch_size"]
         self.num_epochs = tp["num_epochs"]
@@ -134,7 +165,7 @@ class Trainer:
             det_p.get("num_layers", 50))
         if backbone_init:
             weights.init_backbone(self.spec.detector, backbone_init)
-            print(f"backbone initialized from {backbone_init}")
+            self._say(f"backbone initialized from {backbone_init}")
         for module in (self.spec.detector, self.spec.physique,
                        self.spec.discriminator):
             if module is not None:
@@ -148,27 +179,38 @@ class Trainer:
         self.epochs_run = 0
         if checkpoint_path is not None and mode == "finetune":
             ckpt.restore_finetune(checkpoint_path, self.state)
-            print("Finetuning from checkpoint (optimizers reset)")
+            self._say("Finetuning from checkpoint (optimizers reset)")
         elif checkpoint_path is not None:
             ckpt.restore_resume(checkpoint_path, self.state)
             self.epochs_run = self.state.epoch
-            print(f"Resuming training from epoch {self.epochs_run}")
+            self._say(f"Resuming training from epoch {self.epochs_run}")
+        mesh.check_model_parallelism(int(tp.get("model_parallelism", 1)))
 
+        # this rank's rows of each global batch
         self.loader = BatchLoader(dataset, batch_size=self.batch_size,
                                   shuffle=True, num_workers=num_workers,
-                                  prefetch=2, seed=self.seed)
+                                  prefetch=2, seed=self.seed,
+                                  num_shards=mesh.process_count(),
+                                  shard_index=self.rank)
         self.steps_per_epoch = len(self.loader)
         mp = config["model_params"]
         self.tb_parent_ids = np.array(mp["parent_ids"])
         self.tb_pair_ids = np.array(mp["flip_pairs"])
-        self.profiler = Profiler.from_config(config, save_dir)
+        self.profiler = (Profiler.from_config(config, save_dir)
+                         if self.rank == 0 else Profiler(None))
         self.timer = StepTimer()
+
+    def _say(self, line: str) -> None:
+        if self.rank == 0:
+            print(line)
 
     def train(self, max_steps: int | None = None, log=print,
               tb_logger=None) -> list[dict]:
         """Runs the epochs (at most `max_steps` steps), writing TensorBoard
         events to `tb_logger` when given; returns the metrics fetched on
-        each log step (every log_interval steps), as floats."""
+        each log step (every log_interval steps), as floats. Only rank 0
+        calls `log`."""
+        log = log if self.rank == 0 else (lambda *_: None)
         history = []
         last_t, last_step = time.perf_counter(), None
         try:

@@ -4,7 +4,8 @@ JAX package's train2d3d.py:
     python -m x_as_supervision_tpu_torch.train2d3d --config <yaml|json> \\
         [--seed S] [--epoch N] [--steps N] [--batch_size B] [--worker N] \\
         [--log_dir DIR] [--checkpoint <ckpt_dir>|auto] [--finetune] \\
-        [--extra_tag T] [--device cpu] [--fp32]
+        [--extra_tag T] [--device cpu] [--fp32] \\
+        [--coordinator HOST:PORT --num_processes P --process_id R]
 
 The same Trainer as the train CLI (train/__main__.py) on mono batches from
 ``TikTok_dataset`` (data/dataloader_2d.py) under the config's
@@ -14,7 +15,8 @@ writes the train CLI's run directory, checkpoints and TensorBoard events.
 Like train2d3d.py the dataset's per-sample seed is ``max(seed, 0)``, and
 the panels use tb_vis's full layout (train2d3d.py's docstring names the
 ``simple_version`` layout, which its Trainer never selects). It trains on
-the CUDA card unless given ``--device cpu``.
+the CUDA card unless given ``--device cpu``, and in P processes under
+torchrun or the ``--coordinator`` flags as the train CLI does.
 """
 
 from __future__ import annotations
@@ -49,3 +51,6 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    from .parallel.mesh import shutdown
+
+    shutdown()
