@@ -188,10 +188,40 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and one profiled step of each (device time by kernel, busy share, the
    NCCL kernels).
 
+14. tp: tensor parallelism (parallel/tp.py), two model ranks on the one
+   card over gloo at (data 1, model 2), the flagship width at 4 cameras x
+   16 (the batch cut from 4 x 32: each rank holds the gathered activations
+   for its backward, near one process's memory). (a) The kernels at a
+   rank's shard shapes against their plain versions, with their bound and
+   cuDNN's time: the link at 256 -> 128 on 16^2 and 512 -> 256 on 8^2
+   (B = 64, bf16 on wgmma and fp32), the physique's 32 -> 16 conv at 256^2
+   (the CUDA-core route). (b) Two ranks (fp32, TF32 off, phase 13's
+   conditioning and cuDNN's deterministic algorithms) from phase 13's
+   one-process reference state on its batch: the generator's gradients,
+   gathered, against the one process on the same code path within 1e-2
+   or twice that path's rounding floor, whichever is larger; one train
+   step's losses 1e-4 relative; rank 1's replicated gradients and running
+   statistics before the step's broadcast from model rank 0
+   (tp.replica_drift) within that same bound of each tensor's largest
+   entry; the gathered weights after the step within Adam's step bound of
+   the one process's (every weight within 2 lr, at most 1e-2 of them
+   more than 0.1 lr apart). (c) The
+   train CLI under ``torchrun --nproc_per_node 2`` with
+   ``model_parallelism: 2`` in the config (bf16, synthetic, 4 steps to
+   00000_ckpt; the ranks pick gloo themselves): per rank and step decode
+   2 + 2, link 14 on wgmma at the shard's Cout, conv3x3 10 on tensor cores
+   and 8 on CUDA cores; the checkpoint scored by the eval CLI in one
+   process (phase 8's launches per batch); then two ranks under torchrun
+   timing the tensor-parallel step against the one-process step at the
+   same 4 x 16, by CUDA events in turns (plain on rank 0 alone, tp,
+   plain; one step each after a warm-up of each), with each rank's peak
+   memory, launches and collectives (calls and MB by group) per step.
+
 Earlier lines carry the findings as JSON; the line before the last lists the
 kernels (launches per training step, per serving forward, per eval batch,
-per step on the per-camera path, per mono step, per eval2d batch and per
-step of the train CLI under torchrun: ``dp_launches``), and
+per step on the per-camera path, per mono step, per eval2d batch, per step
+of the train CLI under torchrun: ``dp_launches``, and per step of each rank
+of the tensor-parallel train CLI: ``tp_launches``), and
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -202,6 +232,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -329,6 +360,23 @@ MONO_LOSSES = ("physique_recons", "reconstruction", "smpl_gen",
 # turns of this many steps
 DP_PAIR_BATCH = 16
 DP_COST_STEPS = 3
+# tensor parallelism: two model ranks on the one card (data 1), at the dp
+# pair's global batch per camera (every image on both ranks); the link at a
+# rank's Cout shard, (Cin, Cout / 2, H = W); the physique conv the split
+# sends to the CUDA cores, (Cin, Cout / 2, side, stride)
+TP_MODEL = 2
+TP_BATCH = DP_PAIR_BATCH
+TP_COST_STEPS = 1
+TP_LINK_SHAPES = ((256, 128, 16), (512, 256, 8))
+TP_CONV = (32, 16, 256, 1)
+# per rank and step: the flagship step's launches, the physique convs on
+# their Cout shards: the forwards 1->16, 32->16, 64->16 and the replicated
+# 32->1 with their four input gradients on the CUDA cores, the other six
+# forwards and four input gradients on tensor cores
+TP_PATH_LAUNCHES = {
+    "conv_bn_link": {"launches_wgmma": 14, "launches_fma": 0},
+    "conv3x3": {"launches_tc": 10, "launches_cuda_core": 8},
+}
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 KERNELS = {
@@ -482,18 +530,22 @@ def _marginals_case(dtype, batch: int) -> dict:
     return case
 
 
-def _link_case(dtype, batch: int, c: int, side: int) -> dict:
+def _link_case(dtype, batch: int, c: int, side: int,
+               cout: int | None = None) -> dict:
+    """The link at (batch, c, side, side) into `cout` output channels (c
+    by default; fewer: a tensor-parallel rank's Cout shard)."""
     import torch
     import torch.nn.functional as F
 
     from x_as_supervision_tpu_torch.ops.conv_bn import (
         FMA_TILE, bn_relu_conv_plain, fused_bn_relu_conv, link_tile)
 
+    cout = c if cout is None else cout
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # channels-last, as the serving path's 1x1 conv hands it over
     x = torch.randn((batch, c, side, side), generator=gen, device="cuda").to(
         dtype).contiguous(memory_format=torch.channels_last)
-    w = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
+    w = (torch.randn((cout, c, 3, 3), generator=gen, device="cuda")
          * (2 / (9 * c)) ** 0.5).to(dtype)
     scale = torch.rand(c, generator=gen, device="cuda") + 0.5
     shift = torch.randn(c, generator=gen, device="cuda") * 0.1
@@ -505,27 +557,30 @@ def _link_case(dtype, batch: int, c: int, side: int) -> dict:
     # fp32: products summed in another order; bf16: y is then rounded to
     # bf16, where that order can move it by one step (2^-8 relative)
     tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * ymax
-    check(err <= tol, f"link kernel {dtype} {c}x{side}^2: max|err| {err} > "
-                      f"{tol}")
+    check(err <= tol, f"link kernel {dtype} {c}->{cout} at {side}^2: max|err| "
+                      f"{err} > {tol}")
     # stats: fp32 sums over B*H*W pixels in another order, so the error is
     # relative to the sum of magnitudes, not to the (cancelling) sum
     yf = ry.float()
     mags = torch.stack([yf.abs().sum(dim=(0, 2, 3)),
                         (yf * yf).sum(dim=(0, 2, 3))])
     serr = ((stats - rstats).abs() / mags.clamp_min(1e-30)).max().item()
-    check(serr <= 1e-5, f"link kernel {dtype} {c}x{side}^2: stats err "
-                        f"{serr} of the sum of magnitudes")
+    check(serr <= 1e-5, f"link kernel {dtype} {c}->{cout} at {side}^2: stats "
+                        f"err {serr} of the sum of magnitudes")
     kind = _kind(dtype)
     elt = x.element_size()
     n = batch * side * side
-    nbytes = 2 * n * c * elt + 9 * c * c * elt + 2 * c * 4 + 2 * c * 4
-    flops = 2.0 * n * c * 9 * c + 3.0 * n * c
+    # read x, w, scale and shift once, write y and the stats once
+    nbytes = (n * (c + cout) * elt + 9 * c * cout * elt + 2 * c * 4
+              + 2 * cout * 4)
+    flops = 2.0 * n * cout * 9 * c + 3.0 * n * c
     bound, by = bound_ms(nbytes, flops, kind)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    tile = (link_tile(batch, side, side, c, sms)
+    tile = (link_tile(batch, side, side, cout, sms)
             if dtype == torch.bfloat16 else FMA_TILE)
     return dict(
         name="conv_bn_link", dtype=kind, shape=[batch, c, side, side],
+        cout=cout,
         path="wgmma" if dtype == torch.bfloat16 else "fma", tile=list(tile),
         max_abs_err=err, stats_rel_err=serr,
         ms=cuda_ms(lambda: fused_bn_relu_conv(x, w, scale, shift)),
@@ -2672,24 +2727,36 @@ def phase_mono(card: str) -> dict:
 # ---------------------------------------------------------------- dp
 
 
-def _torchrun(root: str, role: str, args: list, timeout: float) -> dict:
-    """`python -m torch.distributed.run --standalone --nproc_per_node 1
-    chip_smoke.py dp-rank <role> <out> <args>`: one rank under torchrun
-    (NCCL), which writes its record to <root>/<role>.json."""
+def _torchrun(root: str, role: str, args: list, timeout: float,
+              nproc: int = 1) -> list:
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    <nproc> chip_smoke.py dp-rank <role> <out> <args>`: `nproc` ranks under
+    torchrun (one: NCCL; two on the one card: gloo, the backend they pick
+    themselves), each of which writes its record to <root>/<role>.json.<r>;
+    returns the records by rank."""
     out = os.path.join(root, f"{role}.json")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "1", os.path.abspath(__file__), "dp-rank",
-           role, out, *args]
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+           "dp-rank", role, out, *args]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True,
                          timeout=timeout, cwd=REPO_ROOT)
     check(res.returncode == 0,
-          f"dp {role}: torchrun exited {res.returncode}: "
+          f"{role}: torchrun exited {res.returncode}: "
           f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
-    with open(out) as f:
-        record = json.load(f)
-    record["process_s"] = time.perf_counter() - t0
-    return record
+    records = []
+    for r in range(nproc):
+        with open(f"{out}.{r}") as f:
+            records.append(json.load(f))
+        records[-1]["process_s"] = time.perf_counter() - t0
+    return records
+
+
+def _rank_out(out: str) -> str:
+    """This rank's record file under _torchrun."""
+    from x_as_supervision_tpu_torch.parallel import mesh
+
+    return f"{out}.{mesh.process_index()}"
 
 
 def _dp_rank_counts() -> dict:
@@ -2711,7 +2778,8 @@ def _dp_rank_cli(out: str, which: str, args: list) -> None:
 
     _reset_counts()
     C.COUNTS.reset()
-    if which == "train":
+    train = which.endswith("train")
+    if train:
         from x_as_supervision_tpu_torch.train.__main__ import main
     else:
         from x_as_supervision_tpu_torch.eval.__main__ import main
@@ -2719,9 +2787,10 @@ def _dp_rank_cli(out: str, which: str, args: list) -> None:
     torch.cuda.synchronize()
     record = dict(_dp_rank_counts(), collectives=C.COUNTS.snapshot(),
                   world=mesh.process_count(), rank=mesh.process_index(),
+                  grid=[mesh.data_size(), mesh.model_size()],
                   backend=str(torch.distributed.get_backend()),
                   device=str(torch.cuda.current_device()))
-    if which == "train":
+    if train:
         record.update(steps=result.state.step,
                       history=result.history,
                       peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -2730,7 +2799,7 @@ def _dp_rank_cli(out: str, which: str, args: list) -> None:
                       num_batches=result.num_batches,
                       result_path=result.result_path,
                       ambiguity_ratio=result.last_ambiguity_ratio)
-    with open(out, "w") as f:
+    with open(_rank_out(out), "w") as f:
         json.dump(record, f)
 
 
@@ -2825,7 +2894,7 @@ def _dp_rank_cost(out: str) -> None:
         profiles[kind] = dict(window_us=window_us,
                               nccl_kernels=_profile_calls(prof, "nccl"),
                               **_profile_rows(prof, window_us, 12))
-    with open(out, "w") as f:
+    with open(_rank_out(out), "w") as f:
         json.dump(dict(
             step_ms=times, peak_memory_gb=peak, dp_steps=dp_steps,
             plain_steps=2 * DP_COST_STEPS,
@@ -3224,78 +3293,76 @@ def _dp_pair(root: str) -> dict:
     check(max(r0["link_stats_rel_err"]) <= 1e-5,
           f"dp pair: link stats summed over the ranks off by "
           f"{r0['link_stats_rel_err']}")
-    check(r0["step_collectives"].get("all_reduce", {}).get("calls", 0) > 0,
-          "dp pair: the step called no all-reduce")
+    calls = r0["step_collectives"].get("all_reduce/data", {}).get("calls", 0)
+    check(calls > 0, "dp pair: the step called no all-reduce")
     return dict(reference=ref, ranks=ranks)
 
 
-def phase_dp(card: str) -> dict:
+def phase_dp(card: str, root: str) -> dict:
     """Data parallelism on the card (see the module docstring): (a) the
     train and eval CLIs under torchrun, one rank over NCCL, at the flagship
     width; (b) two gloo ranks on the one card against one process; (c) the
-    one-rank step's cost against the step without a process group."""
-    import tempfile
-
+    one-rank step's cost against the step without a process group. Its
+    files go under `root`, where phase_tp finds the pair's reference."""
     import torch
 
     from x_as_supervision_tpu_torch.checks import result_lines
     from x_as_supervision_tpu_torch.train.factory import flagship_config
 
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as root:
-        cfg = flagship_config()
-        cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
-        cfg_path = os.path.join(root, "flagship.json")
-        with open(cfg_path, "w") as f:
-            json.dump(cfg, f)
-        log_dir = os.path.join(root, "log")
-        train = _torchrun(root, "train", [
-            "--config", cfg_path, "--synthetic", "--seed", str(SEED),
-            "--log_dir", log_dir], timeout=600)
-        steps = TRAIN_IMAGES // TRAIN_BATCH
-        check(train["steps"] == steps and train["world"] == 1
-              and train["backend"] == "nccl",
-              f"dp train CLI: {train['steps']} steps, world "
-              f"{train['world']}, backend {train['backend']}")
-        for name, per_step in TRAIN_LAUNCHES.items():
-            check(train["launches"][name] == per_step * steps,
-                  f"dp train CLI: {name} launched {train['launches'][name]}"
-                  f" times in {steps} steps, expected {per_step} per step")
-        for name, attrs in TRAIN_PATH_LAUNCHES.items():
-            for attr, per_step in attrs.items():
-                got = train["path_launches"][name][attr]
-                check(got == per_step * steps,
-                      f"dp train CLI: {name}.{attr} = {got} in {steps} "
-                      f"steps, expected {per_step} per step")
-        check(all(np.isfinite(v) for h in train["history"]
-                  for v in h.values()), "dp train CLI: a non-finite loss")
-        (run,) = os.listdir(log_dir)
-        path = os.path.join(log_dir, run, "00000_ckpt")
-        check(os.path.exists(os.path.join(path, "state.pt")),
-              "dp train CLI: no checkpoint")
-        ev = _torchrun(root, "eval", [
-            "--config", cfg_path, "--synthetic", "--checkpoint", path,
-            "--multi_hypo", "best", "--reduce_hosts"], timeout=600)
-        nb = ev["batches"]
-        check(nb == ev["num_batches"] > 0, f"dp eval CLI: {nb} batches")
-        for name, per_batch in EVAL_LAUNCHES.items():
-            check(ev["launches"][name] == per_batch * nb,
-                  f"dp eval CLI: {name} launched {ev['launches'][name]} "
-                  f"times in {nb} batches, expected {per_batch} per batch")
-        lines = result_lines(ev["result_path"])
-        check(len(lines) == 15 and all(
-            v is None or np.isfinite(v) for _, v in lines),
-            f"dp eval CLI: eval_result.txt {lines}")
-        synced_bn = _synced_bn_cases()
-        pair = _dp_pair(root)
-        cost = _torchrun(root, "cost", [], timeout=600)
+    cfg = flagship_config()
+    cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
+    cfg_path = os.path.join(root, "flagship.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    log_dir = os.path.join(root, "log")
+    (train,) = _torchrun(root, "train", [
+        "--config", cfg_path, "--synthetic", "--seed", str(SEED),
+        "--log_dir", log_dir], timeout=600)
+    steps = TRAIN_IMAGES // TRAIN_BATCH
+    check(train["steps"] == steps and train["world"] == 1
+          and train["backend"] == "nccl",
+          f"dp train CLI: {train['steps']} steps, world "
+          f"{train['world']}, backend {train['backend']}")
+    for name, per_step in TRAIN_LAUNCHES.items():
+        check(train["launches"][name] == per_step * steps,
+              f"dp train CLI: {name} launched {train['launches'][name]}"
+              f" times in {steps} steps, expected {per_step} per step")
+    for name, attrs in TRAIN_PATH_LAUNCHES.items():
+        for attr, per_step in attrs.items():
+            got = train["path_launches"][name][attr]
+            check(got == per_step * steps,
+                  f"dp train CLI: {name}.{attr} = {got} in {steps} "
+                  f"steps, expected {per_step} per step")
+    check(all(np.isfinite(v) for h in train["history"]
+              for v in h.values()), "dp train CLI: a non-finite loss")
+    (run,) = os.listdir(log_dir)
+    path = os.path.join(log_dir, run, "00000_ckpt")
+    check(os.path.exists(os.path.join(path, "state.pt")),
+          "dp train CLI: no checkpoint")
+    (ev,) = _torchrun(root, "eval", [
+        "--config", cfg_path, "--synthetic", "--checkpoint", path,
+        "--multi_hypo", "best", "--reduce_hosts"], timeout=600)
+    nb = ev["batches"]
+    check(nb == ev["num_batches"] > 0, f"dp eval CLI: {nb} batches")
+    for name, per_batch in EVAL_LAUNCHES.items():
+        check(ev["launches"][name] == per_batch * nb,
+              f"dp eval CLI: {name} launched {ev['launches'][name]} "
+              f"times in {nb} batches, expected {per_batch} per batch")
+    lines = result_lines(ev["result_path"])
+    check(len(lines) == 15 and all(
+        v is None or np.isfinite(v) for _, v in lines),
+        f"dp eval CLI: eval_result.txt {lines}")
+    synced_bn = _synced_bn_cases()
+    pair = _dp_pair(root)
+    (cost,) = _torchrun(root, "cost", [], timeout=600)
     for name, per_step in TRAIN_LAUNCHES.items():
         got = cost["launches"][name]
         check(got == per_step * cost["dp_steps"],
               f"dp cost: {name} launched {got} times in {cost['dp_steps']} "
               f"dp steps, expected {per_step} per step")
     mean = {k: sum(v) / len(v) for k, v in cost["step_ms"].items()}
-    ar = cost["collectives_per_step"].get("all_reduce", {})
+    ar = cost["collectives_per_step"].get("all_reduce/data", {})
     record = dict(
         phase="dp", card=card,
         train_cli=dict(
@@ -3347,19 +3414,430 @@ def phase_dp(card: str) -> dict:
     return record
 
 
+def _tp_kernel_cases() -> list[dict]:
+    """The kernels at a tensor-parallel rank's shard shapes (B = 64, the
+    pair's 4 cameras x 16) against their plain versions, fp32 with TF32
+    off and bf16: the link into its Cout shard, and the physique conv that
+    the split sends to the CUDA cores."""
+    import torch
+
+    batch = TP_BATCH * CAMERAS
+    cases = []
+    set_tf32(False)
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            for c, cout, side in TP_LINK_SHAPES:
+                cases.append(_link_case(dtype, batch, c, side, cout))
+            cases.append(_conv_case(dtype, batch, *TP_CONV))
+        torch.cuda.synchronize()
+    finally:
+        set_tf32(True)
+    for case in cases:
+        emit(phase="tp_kernel", **case)
+    conv = [c for c in cases if c["name"] == "conv3x3"]
+    check(all(c["path"] == "cuda_core" for c in conv),
+          f"tp kernels: the 32->16 conv took {[c['path'] for c in conv]}")
+    return cases
+
+
+def _tp_rank_pair(rank: int, port: int, root: str) -> None:
+    """A rank of the tensor-parallel pair on the one card (gloo, data 1,
+    model 2): phase 13's reference state cut to this rank's shards, the
+    generator's gradients and one train step on the whole batch; each rank
+    reads how far its replicated gradients and statistics were from model
+    rank 0's before the step's broadcast (tp.replica_drift), rank 0 holds
+    the gathered gradients, losses and parameters to the one process."""
+    import torch
+    import torch.distributed as dist
+
+    from x_as_supervision_tpu_torch.parallel import collectives as C
+    from x_as_supervision_tpu_torch.parallel import mesh, tp
+    from x_as_supervision_tpu_torch.train import checkpoint as ckpt
+    from x_as_supervision_tpu_torch.train.state import train_step
+    from x_as_supervision_tpu_torch.train.trainer import (
+        step_generator, to_device)
+
+    torch.cuda.set_device(0)
+    mesh.initialize_multihost(f"localhost:{port}", TP_MODEL, rank,
+                              backend="gloo", timeout_s=600)
+    mesh.make_grid(TP_MODEL)
+    cfg = _dp_pair_config()
+    spec, state = _gan(cfg, torch.float32, "cuda", SEED)
+    ckpt.restore_resume(os.path.join(root, "pair_ckpt"), state)
+    tp.shard_state(state)
+    dims = state.shard_dims
+    # one data index: both model ranks read the whole batch
+    dev = to_device(dict(np.load(os.path.join(root, "pair_batch.npz"))),
+                    "cuda")
+    set_tf32(False)
+    set_cudnn_deterministic(True)
+    torch.cuda.reset_peak_memory_stats()
+    C.COUNTS.reset()
+    grads = _gen_grads(spec, state, dev, step_generator(SEED, 0, "cuda"))
+    grads = {n: (C.gather_channels(g, dims[n]) if n in dims else g)
+             .detach().cpu() for n, g in grads.items()}
+    grad_counts = C.COUNTS.snapshot()
+    C.COUNTS.reset()
+    tp.replica_drift()
+    t0 = time.perf_counter()
+    metrics = train_step(state, dev, step_generator(SEED, 1, "cuda"))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    drift = tp.replica_drift()
+    step_counts = C.COUNTS.snapshot()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    whole = tp.gather_state(state, ckpt.state_dict(state))
+    record = dict(rank=rank, metrics={k: float(v) for k, v in
+                                      metrics.items()},
+                  replica_drift=drift,
+                  split_tensors=len(dims), grad_collectives=grad_counts,
+                  step_collectives=step_counts, step_s=step_s,
+                  peak_memory_gb=peak, backend=str(dist.get_backend()))
+    if rank == 0:
+        ref = torch.load(os.path.join(root, "pair_ref.pt"))
+        cancelled = {"physique." + n
+                     for n in spec.physique.bn_cancelled_biases()}
+        # phase 13's measure, against the one process on the same code
+        # path (the synced statistics in a group of one)
+        err = _rel_errs(grads, ref["group_of_one"], cancelled)
+        worst = max(err, key=err.get)
+        l2 = {n: ((grads[n] - w).norm() / w.norm()).item()
+              for n, w in ref["group_of_one"].items() if n in err}
+        native = _rel_errs(grads, ref["grads"], cancelled)
+        floors = {k: (max(v, key=v.get), max(v.values()))
+                  for k, v in ref["floors"].items()}
+        params = {f"{m}.{k}": v for m in tp.MODULES
+                  for k, v in whole[m].items()}
+        lr = float(cfg["train_params"]["lr_kp_detector"])
+        diffs = {n: (params[n].detach().cpu() - p).abs()
+                 for n, p in ref["params"].items()}
+        pd = max(d.max().item() for d in diffs.values())
+        # weights more than a tenth of a step from the one process's,
+        # where the gradient is not zero by construction
+        held = [d for n, d in diffs.items() if n not in cancelled]
+        far = sum(int((d > 0.1 * lr).sum()) for d in held)
+        pmax = max(p.abs().max().item() for p in ref["params"].values())
+        record.update(
+            param_frac_over_tenth_step=far / sum(d.numel() for d in held),
+            # Adam's first step moves a weight by less than lr, so two
+            # first steps from one state differ by less than 2 lr, plus
+            # the two results' rounding
+            param_bound_over_lr=(2 * lr + 2 * torch.finfo(
+                torch.float32).eps * pmax) / lr)
+        record.update(
+            loss_rel_err={k: abs(record["metrics"][k] - v) / abs(v)
+                          for k, v in ref["metrics"].items()},
+            grad_max_rel_err=err[worst], grad_worst_tensor=worst,
+            grad_max_rel_l2=max(l2.values()),
+            grad_vs_native=(max(native, key=native.get),
+                            max(native.values())),
+            grad_floors=floors, param_max_diff_over_lr=pd / lr)
+    with open(os.path.join(root, f"tp_pair_{rank}.json"), "w") as f:
+        json.dump(record, f)
+    mesh.shutdown()
+
+
+def _tp_pair(root: str) -> list:
+    """Two tensor-parallel ranks on the one card against phase 13's one
+    process (see the module docstring)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "dp-rank", "tp_pair",
+         str(r), str(port), root], cwd=REPO_ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(TP_MODEL)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"tp pair rank {r} exited {p.returncode}: "
+                                 f"{out[-4000:]}")
+    ranks = []
+    for r in range(TP_MODEL):
+        with open(os.path.join(root, f"tp_pair_{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    emit(phase="tp_pair", ranks=ranks)
+    check(max(r0["loss_rel_err"].values()) <= 1e-4,
+          f"tp pair: loss rel err {r0['loss_rel_err']}")
+    # phase 13's bound: 1e-2, or twice the native one-process path's
+    # distance from the same code path in a group of one
+    bound = max(1e-2, 2 * r0["grad_floors"]["group_of_one"][1])
+    r0["grad_bound"] = bound
+    check(r0["grad_max_rel_err"] <= bound,
+          f"tp pair: gradient of {r0['grad_worst_tensor']} off by "
+          f"{r0['grad_max_rel_err']} of its largest entry (bound {bound})")
+    # the model ranks compute the replicated values alike up to the order
+    # of the kernels' atomic sums: the same bound, before the broadcast
+    # that makes them equal
+    drift = ranks[1]["replica_drift"]
+    check(drift is not None and drift <= bound,
+          f"tp pair: rank 1's replicated values {drift} of their largest "
+          f"entry from rank 0's before the broadcast (bound {bound})")
+    check(r0["param_max_diff_over_lr"] <= r0["param_bound_over_lr"]
+          and r0["param_frac_over_tenth_step"] <= 1e-2,
+          f"tp pair: weights after the step {r0['param_max_diff_over_lr']}"
+          f" lr (bound {r0['param_bound_over_lr']}) from the one process's"
+          f", {r0['param_frac_over_tenth_step']} of them over 0.1 lr "
+          f"(bound 1e-2)")
+    for op in ("all_gather/model", "all_reduce/model"):
+        check(r0["step_collectives"].get(op, {}).get("calls", 0) > 0,
+              f"tp pair: the step called no {op}")
+    return ranks
+
+
+def _tp_rank_cost(out: str) -> None:
+    """Two ranks under torchrun (gloo, model 2): the bf16 flagship step at
+    4 cameras x 16 split over the ranks against the same step whole in one
+    process (rank 0, no process group seen), by CUDA events in turns
+    (plain, tp, plain; rank 1 waits while rank 0 runs plain), with each
+    rank's peak memory, launches, collectives and replica drift
+    (tp.replica_drift, bf16 without cuDNN's deterministic algorithms) per
+    tensor-parallel step."""
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+
+    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from x_as_supervision_tpu_torch.parallel import collectives as C
+    from x_as_supervision_tpu_torch.parallel import mesh, tp
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+    from x_as_supervision_tpu_torch.train.state import train_step
+    from x_as_supervision_tpu_torch.train.trainer import (
+        step_generator, to_device)
+
+    mesh.initialize_multihost()
+    mesh.make_grid(TP_MODEL)
+    rank = mesh.process_index()
+    device = mesh.rank_device()
+    cfg = flagship_config()
+    cfg["train_params"].update(batch_size=TP_BATCH,
+                               model_parallelism=TP_MODEL)
+    cams = cfg["dataset_params"]["cam_id_list"]
+    spec, state = _gan(cfg, torch.bfloat16, device, SEED)
+    tp.shard_state(state)
+    plain_state = (_gan(cfg, torch.bfloat16, device, SEED)[1]
+                   if rank == 0 else None)
+    ds = SyntheticPoseDataset(num_samples=TP_BATCH * 2, cam_id_list=cams,
+                              patch_size=PATCH, seed=SEED)
+    batches = [to_device(ds.batch(i * TP_BATCH, TP_BATCH), device)
+               for i in range(2)]
+
+    def step(i, kind):
+        if kind == "tp":
+            return train_step(state, batches[i % 2],
+                              step_generator(SEED, i, device))
+        with mock.patch.object(dist, "is_initialized", lambda: False):
+            return train_step(plain_state, batches[i % 2],
+                              step_generator(SEED, i, device))
+
+    if rank == 0:
+        step(0, "plain")  # warm-up of each path
+    mesh.barrier()
+    step(1, "tp")
+    torch.cuda.synchronize()
+    times = {"plain": [], "tp": []}
+    peak = {}
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    paths = {name: dict.fromkeys(attrs, 0)
+             for name, attrs in TP_PATH_LAUNCHES.items()}
+    tp_steps = 0
+    for kind in ("plain", "tp", "plain"):
+        mesh.barrier()
+        if kind == "plain" and rank != 0:
+            mesh.barrier()
+            continue
+        torch.cuda.reset_peak_memory_stats()
+        before = {name: fn.launches for name, fn in counters.items()}
+        before_paths = {name: {a: getattr(counters[name], a) for a in attrs}
+                        for name, attrs in TP_PATH_LAUNCHES.items()}
+        for i in range(TP_COST_STEPS):
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+            if kind == "tp":
+                C.COUNTS.reset()
+                tp.replica_drift()
+                tp_steps += 1
+            ev0.record()
+            step(i, kind)
+            ev1.record()
+            torch.cuda.synchronize()
+            times[kind].append(ev0.elapsed_time(ev1))
+            if kind == "tp":
+                per_step = C.COUNTS.snapshot()
+                drift = tp.replica_drift()
+        peak[kind] = torch.cuda.max_memory_allocated() / 1e9
+        if kind == "tp":
+            for name, fn in counters.items():
+                launches[name] += fn.launches - before[name]
+            for name, attrs in TP_PATH_LAUNCHES.items():
+                for a in attrs:
+                    paths[name][a] += (getattr(counters[name], a)
+                                       - before_paths[name][a])
+        else:
+            mesh.barrier()
+    with open(_rank_out(out), "w") as f:
+        json.dump(dict(
+            rank=rank, step_ms=times, peak_memory_gb=peak, tp_steps=tp_steps,
+            launches=launches, path_launches=paths,
+            collectives_per_step=per_step,  # the last tp step's
+            replica_drift=drift,
+            backend=str(dist.get_backend()), world=mesh.process_count(),
+            grid=[mesh.data_size(), mesh.model_size()],
+            split_tensors=len(state.shard_dims)), f)
+
+
+def phase_tp(card: str, root: str) -> dict:
+    """Tensor parallelism on the card (see the module docstring): (a) the
+    kernels at the shard shapes; (b) two gloo ranks against phase 13's one
+    process (its reference files in `root`); (c) the train CLI under
+    torchrun with model_parallelism 2, its checkpoint through the eval CLI,
+    and the tensor-parallel step's cost against one process."""
+    import torch
+
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+
+    torch.cuda.empty_cache()
+    cases = _tp_kernel_cases()
+    pair = _tp_pair(root)
+    cfg = flagship_config()
+    cfg["train_params"].update(num_epochs=1, checkpoint_freq=1,
+                               batch_size=TP_BATCH,
+                               model_parallelism=TP_MODEL)
+    cfg_path = os.path.join(root, "flagship_tp.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    log_dir = os.path.join(root, "tp_log")
+    ranks = _torchrun(root, "tp_train", [
+        "--config", cfg_path, "--synthetic", "--seed", str(SEED),
+        "--log_dir", log_dir], timeout=900, nproc=TP_MODEL)
+    # the synthetic fixture holds max(4 B, 64) samples
+    steps = max(4 * TP_BATCH, 64) // TP_BATCH
+    per_rank = []
+    for train in ranks:
+        r = train["rank"]
+        check(train["steps"] == steps and train["world"] == TP_MODEL
+              and train["grid"] == [1, TP_MODEL]
+              and train["backend"] == "gloo",
+              f"tp train CLI rank {r}: {train['steps']} steps, world "
+              f"{train['world']}, grid {train['grid']}, backend "
+              f"{train['backend']}")
+        for name, per_step in TRAIN_LAUNCHES.items():
+            check(train["launches"][name] == per_step * steps,
+                  f"tp train CLI rank {r}: {name} launched "
+                  f"{train['launches'][name]} times in {steps} steps, "
+                  f"expected {per_step} per step")
+        for name, attrs in TP_PATH_LAUNCHES.items():
+            for attr, per_step in attrs.items():
+                got = train["path_launches"][name][attr]
+                check(got == per_step * steps,
+                      f"tp train CLI rank {r}: {name}.{attr} = {got} in "
+                      f"{steps} steps, expected {per_step} per step")
+        check(all(np.isfinite(v) for h in train["history"]
+                  for v in h.values()), "tp train CLI: a non-finite loss")
+        per_rank.append(dict(
+            rank=r, process_s=train["process_s"],
+            peak_memory_gb=train["peak_memory_gb"],
+            launches_per_step={k: v / steps
+                               for k, v in train["launches"].items()},
+            path_launches_per_step={
+                k: {a: n / steps for a, n in v.items()}
+                for k, v in train["path_launches"].items()},
+            collectives=train["collectives"]))
+    (run,) = os.listdir(log_dir)
+    path = os.path.join(log_dir, run, "00000_ckpt")
+    check(os.path.exists(os.path.join(path, "state.pt")),
+          "tp train CLI: no checkpoint")
+    _, ev = _eval_cli(cfg_path, path, "best", True)
+    cost = _torchrun(root, "tp_cost", [], timeout=900, nproc=TP_MODEL)
+    for c in cost:
+        for name, per_step in TRAIN_LAUNCHES.items():
+            got = c["launches"][name]
+            check(got == per_step * c["tp_steps"],
+                  f"tp cost rank {c['rank']}: {name} launched {got} times in "
+                  f"{c['tp_steps']} tp steps, expected {per_step} per step")
+        for name, attrs in TP_PATH_LAUNCHES.items():
+            for attr, per_step in attrs.items():
+                got = c["path_launches"][name][attr]
+                check(got == per_step * c["tp_steps"],
+                      f"tp cost rank {c['rank']}: {name}.{attr} = {got} in "
+                      f"{c['tp_steps']} tp steps")
+    plain = cost[0]["step_ms"]["plain"]
+    mean_plain = sum(plain) / len(plain)
+    by_group = {op: dict(calls=v["calls"], mb=v["bytes"] / 1e6)
+                for op, v in cost[0]["collectives_per_step"].items()}
+    record = dict(
+        phase="tp", card=card, model=TP_MODEL,
+        global_batch_per_camera=TP_BATCH,
+        kernel_cases=[{k: c.get(k) for k in (
+            "name", "dtype", "shape", "cout", "path", "tile", "max_abs_err",
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for c in cases],
+        pair=dict(
+            loss_rel_err=pair[0]["loss_rel_err"],
+            grad_max_rel_err=pair[0]["grad_max_rel_err"],
+            grad_worst_tensor=pair[0]["grad_worst_tensor"],
+            grad_bound=pair[0]["grad_bound"],
+            grad_max_rel_l2=pair[0]["grad_max_rel_l2"],
+            grad_vs_native=pair[0]["grad_vs_native"],
+            grad_floors=pair[0]["grad_floors"],
+            param_max_diff_over_lr=pair[0]["param_max_diff_over_lr"],
+            param_bound_over_lr=pair[0]["param_bound_over_lr"],
+            param_frac_over_tenth_step=pair[0][
+                "param_frac_over_tenth_step"],
+            replica_drift=[r["replica_drift"] for r in pair],
+            split_tensors=pair[0]["split_tensors"],
+            step_s=[r["step_s"] for r in pair],
+            peak_memory_gb=[r["peak_memory_gb"] for r in pair],
+            step_collectives=pair[0]["step_collectives"]),
+        train_cli=dict(steps=steps, ranks=per_rank),
+        eval_cli={k: ev[k] for k in ("batches", "launches_per_batch",
+                                     "wgmma_per_batch", "ambiguity_ratio",
+                                     "eval_result")},
+        cost=dict(
+            step_ms=[c["step_ms"] for c in cost],
+            mean_plain_ms=mean_plain,
+            mean_tp_ms=[sum(c["step_ms"]["tp"]) / len(c["step_ms"]["tp"])
+                        for c in cost],
+            tp_over_plain=[sum(c["step_ms"]["tp"]) / len(c["step_ms"]["tp"])
+                           / mean_plain for c in cost],
+            peak_memory_gb=[c["peak_memory_gb"] for c in cost],
+            replica_drift=[c["replica_drift"] for c in cost],
+            collectives_per_step=by_group,
+            launches_per_step={k: v / cost[0]["tp_steps"]
+                               for k, v in cost[0]["launches"].items()}))
+    emit(**record)
+    return record
+
+
 def dp_rank_main(argv: list) -> int:
-    """The rank processes of phase_dp: ``dp-rank train|eval <out> <CLI
-    args>`` and ``dp-rank cost <out>`` under torchrun, ``dp-rank pair
-    <rank> <port> <dir>`` beside its twin."""
+    """The rank processes of phase_dp and phase_tp: ``dp-rank
+    train|eval|tp_train <out> <CLI args>`` and ``dp-rank cost|tp_cost
+    <out>`` under torchrun, ``dp-rank pair|tp_pair <rank> <port> <dir>``
+    beside its twin."""
     role = argv[0]
-    if role == "pair":
-        _dp_rank_pair(int(argv[1]), int(argv[2]), argv[3])
+    if role in ("pair", "tp_pair"):
+        run = _dp_rank_pair if role == "pair" else _tp_rank_pair
+        run(int(argv[1]), int(argv[2]), argv[3])
         return 0
     from x_as_supervision_tpu_torch.parallel import mesh
 
     try:
         if role == "cost":
             _dp_rank_cost(argv[1])
+        elif role == "tp_cost":
+            _tp_rank_cost(argv[1])
         else:
             _dp_rank_cli(argv[1], role, argv[2:])
     finally:
@@ -3394,7 +3872,9 @@ def main() -> int:
         phase_real_data(device["nvidia_smi"])
         variants = phase_variants()
         mono = phase_mono(device["nvidia_smi"])
-        dp = phase_dp(device["nvidia_smi"])
+        with tempfile.TemporaryDirectory() as root:
+            dp = phase_dp(device["nvidia_smi"], root)
+            tp = phase_tp(device["nvidia_smi"], root)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3444,6 +3924,10 @@ def main() -> int:
             mono_launches=mono["train_cli"]["launches_per_step"][name],
             eval2d_launches=mono["eval2d"]["launches_per_batch"][name],
             dp_launches=dp["train_cli"]["launches_per_step"][name],
+            tp_launches=tp["train_cli"]["ranks"][0]["launches_per_step"][
+                name],
+            tp_path_launches=tp["train_cli"]["ranks"][0][
+                "path_launches_per_step"].get(name),
             mono_shape=mcase["shape"], mono_max_abs_err=mcase["max_abs_err"],
             mono_ms=mcase["ms"], mono_plain_ms=mcase["plain_ms"],
             mono_bound_ms=mcase["bound_ms"],

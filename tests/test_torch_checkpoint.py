@@ -274,6 +274,26 @@ def test_eval_cli_needs_synthetic_and_a_checkpoint(first_epoch, tmp_path):
         eval_main(["--config", str(path), "--synthetic", "--device", "cpu"])
 
 
+def test_eval_cli_takes_log_dir_and_extra_tag(first_epoch, tmp_path):
+    """eval.py's --log_dir and --extra_tag are accepted and unused: the
+    result goes beside the checkpoint, as eval.py writes it."""
+    from x_as_supervision_tpu_torch.eval.__main__ import main as eval_main
+
+    _, save_dir, ckpt_dir = first_epoch
+    cfg = _config(1)
+    cfg["dataset_params"]["dataset"] = {"name": "hm36"}
+    path = tmp_path / "tiny.json"
+    path.write_text(json.dumps(cfg))
+    log = tmp_path / "elsewhere"
+    ev = eval_main(["--config", str(path), "--checkpoint", ckpt_dir,
+                    "--synthetic", "--device", "cpu", "--batch_size", "16",
+                    "--log_dir", str(log), "--extra_tag", "x"])
+    assert ev.result_path == os.path.join(save_dir, "eval",
+                                          "eval_result.txt")
+    assert os.path.getsize(ev.result_path) > 0
+    assert not log.exists()
+
+
 def test_trainer_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

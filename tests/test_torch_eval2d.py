@@ -360,7 +360,19 @@ def test_figure_writers_match_jax(tmp_path):
 # ---------------------------------------------------------------- configs
 
 
-@pytest.mark.parametrize("name", ["TikTok_Multi_S1", "MPII_2D"])
+# every shipped config (the card's machine has no yaml)
+CONFIGS = sorted(f[:-len(".yaml")] for f in os.listdir(os.path.join(
+    REPO, "config")) if f.endswith(".yaml"))
+
+
+def test_every_shipped_config_has_a_json_copy():
+    assert len(CONFIGS) == 17
+    copies = sorted(f[:-len(".json")] for f in os.listdir(os.path.join(
+        REPO, "x_as_supervision_tpu_torch", "configs")))
+    assert copies == CONFIGS
+
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_json_config_is_the_yaml_config(name):
     with open(os.path.join(REPO, "config", f"{name}.yaml")) as f:
         want = yaml.safe_load(f)

@@ -99,10 +99,12 @@ def test_psum_flat_and_counts(ranks):
         assert c.tolist() == [[4.0, 4.0], [4.0, 4.0]]
         counts = res["counts"]
         # psum forward + backward, pmean, all-gather's backward, two
-        # cross-host sums (the mean is one), one flat bucket
-        assert counts["all_reduce"]["calls"] == 7
-        assert counts["all_gather"] == {"calls": 2, "bytes": 2 * 8 + 2 * 4}
-        assert counts["ppermute"] == {"calls": 2, "bytes": 16}
+        # cross-host sums (the mean is one), one flat bucket; all over the
+        # data group, the world without tensor parallelism
+        assert counts["all_reduce/data"]["calls"] == 7
+        assert counts["all_gather/data"] == {"calls": 2,
+                                             "bytes": 2 * 8 + 2 * 4}
+        assert counts["ppermute/data"] == {"calls": 2, "bytes": 16}
     assert ranks[0]["counts"] == ranks[1]["counts"]
 
 

@@ -1,16 +1,22 @@
 """The port's data-parallel GAN step, two CPU ranks over gloo, against the
 JAX package's jitted step on a 2-device ``data`` mesh with the batch
 sharded (as tests/test_train_step.py runs it), on the tiny flagship config
-in fp32 over a 3-step fused trajectory, global batch 4.
+in fp32 over a 3-step fused trajectory, global batch 4; and the port's
+tensor-parallel step, four ranks at (data 2, model 2)
+(tests/torch_tp.py:job_tp_jax_steps), against the same JAX steps for the
+first 2 of them, by the same bounds.
 
 This process runs the JAX step and writes each step's JAX state before and
 after it and its batch as npz; the two ranks (tests/torch_dp.py, JAX-free)
 carry each step's JAX state in (checks.load_train_state, the JAX-free half
 of tests/torch_parity.py:carry_train_state) and take the port's step on
-their halves of the global batch. Every loss, parameter, running statistic
+their halves of the global batch; the four tensor-parallel ranks cut it to
+their channel shards first, and rank 0 gathers the state after the step. Every loss, parameter, running statistic
 and pending_disc_grads is held to JAX with tests/test_torch_train.py's
 bounds (assert_step_matches, applied in rank 0 to its whole state), and
-the two ranks' states, Adam moments included, to each other bitwise.
+the two ranks' states, Adam moments included, to each other bitwise;
+each tensor-parallel rank's replicated gradients and statistics to model
+rank 0's bitwise before the step's broadcast (tp.replica_drift).
 The discriminator header's dropout is off on both sides, as in
 test_torch_train.py (the frameworks draw different bits).
 
@@ -53,6 +59,7 @@ GLOBAL_BATCH = 4
 STEPS = 3
 STEPS_PER_EPOCH = 10
 LR = 1e-4
+TP_STEPS = 2
 
 
 def _conditioned(det_params):
@@ -66,7 +73,10 @@ def _conditioned(det_params):
 
 
 @pytest.fixture(scope="module")
-def trajectories(tmp_path_factory):
+def jax_run(tmp_path_factory):
+    """JAX's trajectory: each step's state before and after it and its
+    batch as npz in a directory (removed after the module's tests), and
+    each step's metrics and carried gradient."""
     workdir = str(tmp_path_factory.mktemp("dp_jax"))
     cfg = _flagship_config(tiny=True)
     ds = SyntheticPoseDataset(num_samples=GLOBAL_BATCH * STEPS,
@@ -82,7 +92,7 @@ def trajectories(tmp_path_factory):
         js.replace(det_params=_conditioned(js.det_params)), mesh)
     step = make_train_step(spec, opt_det, opt_disc)
     np.savez(os.path.join(workdir, "meta.npz"), steps=STEPS,
-             steps_per_epoch=STEPS_PER_EPOCH, lr=LR)
+             tp_steps=TP_STEPS, steps_per_epoch=STEPS_PER_EPOCH, lr=LR)
     want = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
@@ -103,10 +113,22 @@ def trajectories(tmp_path_factory):
                 pending=weights.discriminator_state_dict(
                     to_numpy_tree(host.pending_disc_grads))))
     try:
-        got = spawn("jax_steps", 2, workdir, timeout=300)
+        yield workdir, want
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    return want, got
+
+
+@pytest.fixture(scope="module")
+def trajectories(jax_run):
+    workdir, want = jax_run
+    return want, spawn("jax_steps", 2, workdir, timeout=300)
+
+
+@pytest.fixture(scope="module")
+def tp_trajectories(jax_run):
+    # one intra-op thread a rank (tests/test_torch_tp_ranks.py's)
+    workdir, want = jax_run
+    return want, spawn("tp_jax_steps", 4, workdir, timeout=300, threads=1)
 
 
 @pytest.mark.parametrize("i", range(STEPS))
@@ -147,3 +169,43 @@ def test_dp_ranks_hold_the_same_state(trajectories, i):
     bitwise equal on the two ranks after every step (a digest of each)."""
     a, b = (rank["steps"][i]["digests"] for rank in trajectories[1])
     assert len(a) > 100 and a == b
+
+
+@pytest.mark.parametrize("i", range(TP_STEPS))
+def test_tp_losses_match_jax(tp_trajectories, i):
+    want, got = tp_trajectories
+    for rank in got:
+        metrics = rank["steps"][i]["metrics"]
+        assert sorted(metrics) == sorted(want[i]["metrics"])
+        for k, w in want[i]["metrics"].items():
+            # the data-parallel ranks' bound
+            np.testing.assert_allclose(metrics[k], w, rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("i", range(TP_STEPS))
+def test_tp_parameters_and_stats_match_jax(tp_trajectories, i):
+    """The four ranks' state gathered, against JAX's after the step."""
+    step = tp_trajectories[1][0]["steps"][i]
+    assert step["split"] > 100
+    assert step["state_verdict"] is None, step["state_verdict"]
+
+
+@pytest.mark.parametrize("i", range(TP_STEPS))
+def test_tp_pending_disc_grads_match_jax(tp_trajectories, i):
+    want, got = tp_trajectories
+    pending = got[0]["steps"][i]["pending"]
+    assert sorted(pending) == sorted(want[i]["pending"])
+    scale = max(float(np.abs(np.asarray(v)).max())
+                for v in want[i]["pending"].values())
+    assert scale > 0
+    for k, w in want[i]["pending"].items():
+        np.testing.assert_allclose(pending[k].numpy(), np.asarray(w),
+                                   rtol=1e-4, atol=1e-5 * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("i", range(TP_STEPS))
+def test_tp_replicas_agree_before_the_broadcast(tp_trajectories, i):
+    """Every rank's replicated gradients and running statistics bitwise
+    equal to its model rank 0's before the step's broadcast."""
+    assert [r["steps"][i]["replica_drift"]
+            for r in tp_trajectories[1]] == [0.0] * 4

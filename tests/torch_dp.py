@@ -1,10 +1,11 @@
-"""Ranks of the port's data-parallel CPU tests (tests/test_torch_parallel*.py).
+"""Ranks of the port's data-parallel CPU tests (tests/test_torch_parallel*.py;
+the tensor-parallel ones' jobs are in tests/torch_tp.py).
 
-``spawn(job, world, workdir)`` starts `world` processes of this file, each
-``python tests/torch_dp.py <job> <rank> <world> <port> <workdir>``, joined
-in a gloo process group through ``--coordinator``-style arguments
-(parallel/mesh.py:initialize_multihost), and waits for them with a
-timeout; world 0 starts one process without a process group (the
+``spawn(job, world, workdir)`` starts `world` processes of this file,
+each ``python tests/torch_dp.py <job> <rank> <world> <port> <workdir>
+<threads>``, joined in a gloo process group through ``--coordinator``-style
+arguments (parallel/mesh.py:initialize_multihost), and waits for them with
+a timeout; world 0 starts one process without a process group (the
 one-process reference under the same thread settings). Each rank runs
 ``JOBS[job]`` and writes what it found to ``<workdir>/<job>_<rank>.pt``.
 
@@ -27,8 +28,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# intra-op threads of every rank and of the one-process reference: the
-# tests run beside other workers on a few cores
+# intra-op threads of every rank and of the one-process reference by
+# default: the tests run beside other workers on a few cores
 THREADS = 2
 # seconds a rendezvous or a collective of a rank may wait
 RANK_TIMEOUT_S = 120
@@ -41,17 +42,18 @@ def free_port() -> int:
 
 
 def spawn(job: str, world: int, workdir: str,
-          timeout: float = 300) -> list[dict]:
-    """Run `job` on `world` ranks (0: one process, no group); returns each
-    rank's result dict. A rank that fails or outlives `timeout` fails the
-    caller (every rank is killed)."""
+          timeout: float = 300, threads: int = THREADS) -> list[dict]:
+    """Run `job` on `world` ranks (0: one process, no group), each with
+    `threads` intra-op threads; returns each rank's result dict. A rank
+    that fails or outlives `timeout` fails the caller (every rank is
+    killed)."""
     import torch
 
     port = free_port()
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS=str(THREADS))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS=str(threads))
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), job, str(r), str(world),
-         str(port), workdir],
+         str(port), workdir, str(threads)],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(max(world, 1))]
     deadline = time.monotonic() + timeout
@@ -498,18 +500,21 @@ JOBS = {"basics": job_basics, "jax_steps": job_jax_steps,
 
 
 def main(argv) -> None:
-    job, rank, world, port, workdir = (argv[0], int(argv[1]), int(argv[2]),
-                                       int(argv[3]), argv[4])
+    job, rank, world, port, workdir, threads = (
+        argv[0], int(argv[1]), int(argv[2]), int(argv[3]), argv[4],
+        int(argv[5]))
     import torch
 
-    torch.set_num_threads(THREADS)
+    torch.set_num_threads(threads)
     from x_as_supervision_tpu_torch.parallel import mesh
 
     if world:
         mesh.initialize_multihost(f"localhost:{port}", world, rank,
                                   backend="gloo", timeout_s=RANK_TIMEOUT_S)
+    import torch_tp
+
     try:
-        result = JOBS[job](rank, world, workdir)
+        result = {**JOBS, **torch_tp.JOBS}[job](rank, world, workdir)
         torch.save(result, os.path.join(workdir, f"{job}_{rank}.pt"))
     finally:
         mesh.shutdown()

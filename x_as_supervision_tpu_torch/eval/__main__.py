@@ -2,7 +2,8 @@
 
     python -m x_as_supervision_tpu_torch.eval --config <yaml|json> \\
         --checkpoint <ckpt_dir> [--multi_hypo best|confident] \\
-        [--batch_size N] [--worker N] [--synthetic] [--device cpu] \\
+        [--batch_size N] [--worker N] [--log_dir DIR] [--extra_tag T] \\
+        [--synthetic] [--device cpu] \\
         [--coordinator HOST:PORT --num_processes P --process_id R] \\
         [--reduce_hosts]
 
@@ -14,7 +15,9 @@ It takes the detector out of a train checkpoint, evaluates it in bf16 (as
 eval.py builds it) on the CUDA card unless given ``--device cpu``, writes
 ``<run>/eval/eval_result.txt`` beside the checkpoint and each batch's pose
 panels as TensorBoard events into ``<run>/eval/tensorboard``, and prints
-the ambiguity ratio. ``--worker`` is accepted and unused, as in eval.py.
+the ambiguity ratio. ``--worker``, ``--log_dir`` and ``--extra_tag`` are
+accepted and unused, as in eval.py (the run directory is the
+checkpoint's).
 
 Under torchrun or the ``--coordinator`` flags (as eval.py takes them)
 process p of P scores batches p, p + P, ... on its own card. With
@@ -80,10 +83,15 @@ def run_eval(config: dict, checkpoint: str, multi_hypo: str = "best",
 def main(argv=None):
     parser = ArgumentParser(description=__doc__)
     parser.add_argument("--config", required=True, help="path to config")
+    parser.add_argument("--log_dir", default="log",
+                        help="unused, as in eval.py: results go beside the "
+                             "checkpoint")
     parser.add_argument("--checkpoint", default=None,
                         help="path to checkpoint to restore")
     parser.add_argument("--batch_size", default=None, type=int)
     parser.add_argument("--worker", default=10, type=int)
+    parser.add_argument("--extra_tag", default=" ", help="unused, as in "
+                        "eval.py")
     parser.add_argument("--multi_hypo", default="best",
                         choices=["best", "confident"],
                         help="multi-hypothesis eval mode")

@@ -34,6 +34,10 @@ global means (ops/losses.py:share_of_min). The discriminator's dropout
 and use_aug's rotations draw at the global shape from the step's generator
 and take this rank's rows (``_rows``; they are camera-major, so not one
 block). Without a process group every term is the one-process value.
+Under tensor parallelism "the ranks" are the data ranks: the model ranks
+of one data index hold the same rows and compute every loss alike on the
+whole tensors that the modules gather (parallel/tp.py), so nothing here
+is split over channels.
 """
 
 from __future__ import annotations
@@ -175,11 +179,11 @@ def _lift(kps, batch: dict, ck: str, side: int, rep: int = 1):
 def _rows(nc: int, b: int, rep: int, device):
     """None without a process group; else ``(n, index)``: this rank's rows
     of the camera-major global batch of n = nc x (P b) x rep rows (each
-    camera's samples, each repeated `rep` times), b samples per camera
-    here, in this rank's order."""
+    camera's samples, each repeated `rep` times; P data ranks), b samples
+    per camera here, in this rank's order."""
     if not C.is_distributed():
         return None
-    p, r = mesh.process_count(), mesh.process_index()
+    p, r = mesh.data_size(), mesh.data_index()
     # made on the device: a copy from the host would make it wait
     index = torch.cat([torch.arange((c * p + r) * b * rep,
                                     (c * p + r + 1) * b * rep, device=device)

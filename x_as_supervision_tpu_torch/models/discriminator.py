@@ -18,6 +18,12 @@ global batch this rank's poses are, ``(n, index)``: dropout draws its mask
 at the global shape and takes those rows, so each rank draws what one
 process draws for them. StatelessBN takes its statistics over the global
 batch in a process group.
+
+Tensor parallelism (parallel/tp.py): every Linear whose weight holds fewer
+outputs than its width is this rank's shard; it computes its output shard
+and gathers it at once, so the adjacency products, GraphLayerNorm,
+StatelessBN, ReLU and dropout (the global mask, as one process draws it)
+all run on whole features, with their split affines and biases gathered.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel import collectives as C
+from ..parallel import tp
+from .resnet import split_input
 
 
 def skeleton_adjacency(parent_ids, child_ids, num_nodes: int,
@@ -54,11 +62,24 @@ def positional_encoding(num_nodes: int, channels: int) -> np.ndarray:
     return pe
 
 
+class Linear(nn.Linear):
+    """nn.Linear; a weight of fewer than out_features rows is this rank's
+    shard under tensor parallelism: the input passes copy_to_model, the
+    output shard (with the bias's shard) is gathered along the last dim."""
+
+    def forward(self, x):
+        shard = self.weight.shape[0]
+        if shard == self.out_features:
+            return super().forward(x)
+        x, bias = split_input(x, self.bias, shard)
+        return C.gather_channels(F.linear(x, self.weight, bias), -1)
+
+
 class DenseSAGE(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.lin_neigh = nn.Linear(cin, cout)
-        self.lin_root = nn.Linear(cin, cout, bias=False)
+        self.lin_neigh = Linear(cin, cout)
+        self.lin_root = Linear(cin, cout, bias=False)
 
     def forward(self, x, adj_rownorm):
         neigh = torch.einsum("ij,bjc->bic", adj_rownorm, x)
@@ -71,13 +92,16 @@ class GraphLayerNorm(nn.Module):
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.channels = channels
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
         mean = x.mean(dim=(-2, -1), keepdim=True)
         var = ((x - mean) ** 2).mean(dim=(-2, -1), keepdim=True)
-        return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
+        return ((x - mean) / torch.sqrt(var + self.eps)
+                * tp.full_param(self.weight, self.channels)
+                + tp.full_param(self.bias, self.channels))
 
 
 class SAGEResidualBlock(nn.Module):
@@ -125,8 +149,8 @@ class FFNHeader(nn.Module):
 
     def __init__(self, cin: int, hidden: int = 512, p_dropout: float = 0.2):
         super().__init__()
-        self.dense0 = nn.Linear(cin, hidden)
-        self.dense1 = nn.Linear(hidden, 1)
+        self.dense0 = Linear(cin, hidden)
+        self.dense1 = Linear(hidden, 1)
         self.p_dropout = p_dropout
 
     def forward(self, x, generator: torch.Generator | None = None,
@@ -142,11 +166,12 @@ class DenseGCNLayer(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.lin = nn.Linear(cin, cout, bias=False)
+        self.lin = Linear(cin, cout, bias=False)
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x, adj_norm):
-        return torch.einsum("bij,bjc->bic", adj_norm, self.lin(x)) + self.bias
+        return (torch.einsum("bij,bjc->bic", adj_norm, self.lin(x))
+                + tp.full_param(self.bias, self.lin.out_features))
 
 
 def sym_normalize(adj, eps: float = 1e-12):
@@ -166,12 +191,13 @@ class StatelessBN(nn.Module):
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.channels = channels
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
         if C.is_distributed():
-            n = x.shape[0] * x.shape[1] * C.process_count()
+            n = x.shape[0] * x.shape[1] * C.data_size()
             mean = C.psum_data(x.sum(dim=(0, 1), keepdim=True)) / n
             var = C.psum_data(((x - mean) ** 2).sum(dim=(0, 1),
                                                     keepdim=True)) / n
@@ -179,7 +205,8 @@ class StatelessBN(nn.Module):
             mean = x.mean(dim=(0, 1), keepdim=True)
             var = ((x - mean) ** 2).mean(dim=(0, 1), keepdim=True)
         y = (x - mean) / torch.sqrt(var + self.eps)
-        return y * self.weight + self.bias
+        return (y * tp.full_param(self.weight, self.channels)
+                + tp.full_param(self.bias, self.channels))
 
 
 class GCNDiscriminatorDecouple(nn.Module):
@@ -207,7 +234,7 @@ class GCNDiscriminatorDecouple(nn.Module):
         else:
             self.pe = None
         for tag in ("joint", "bone"):
-            setattr(self, f"{tag}_input", nn.Linear(cin, input_dim))
+            setattr(self, f"{tag}_input", Linear(cin, input_dim))
             blocks = [SAGEResidualBlock(input_dim if i == 0 else hidden_dim,
                                         hidden_dim, hidden_dim)
                       for i in range(num_layers)]
@@ -265,14 +292,14 @@ class GCNSAGEDiscriminator(nn.Module):
             cin *= 2
         else:
             self.pe = None
-        self.input = nn.Linear(cin, input_dim)
+        self.input = Linear(cin, input_dim)
         self.blocks = nn.ModuleList([
             SAGEResidualBlock(input_dim if i == 0 else hidden_dim,
                               hidden_dim, hidden_dim)
             for i in range(num_layers)])
         self.final = SAGEResidualBlock(hidden_dim, hidden_dim, output_dim,
                                        single_layer=True)
-        self.header = nn.Linear(num_nodes * output_dim, 1)
+        self.header = Linear(num_nodes * output_dim, 1)
 
     def forward(self, keypoints, generator: torch.Generator | None = None,
                 rows=None):
@@ -312,7 +339,7 @@ class GCNDiscriminator(nn.Module):
         self.child_ids = list(child_ids)
         self.use_self_loop = use_self_loop
         self.p_dropout = p_dropout
-        self.input = nn.Linear(disc_sup_dim, input_dim)
+        self.input = Linear(disc_sup_dim, input_dim)
         if variant == "simple_gcn":
             dims = [(input_dim, hidden_dim), (hidden_dim, hidden_dim)]
         else:
@@ -323,7 +350,7 @@ class GCNDiscriminator(nn.Module):
         n_bn = 2 * num_layers if variant == "res_gcn" and use_bn else 0
         self.bns = nn.ModuleList([StatelessBN(hidden_dim)
                                   for _ in range(n_bn)])
-        self.header = nn.Linear(num_nodes * dims[-1][1], 1)
+        self.header = Linear(num_nodes * dims[-1][1], 1)
 
     def bn_cancelled_biases(self) -> list[str]:
         """Names of the GCN biases that a StatelessBN follows: its mean

@@ -13,6 +13,11 @@ working type ``dtype`` and each conv casts its weight to it. BatchNorm
 (models/resnet.py:BatchNorm2d) pools its statistics over the whole batch,
 all cameras together, as the JAX package does, or with ``bn_groups`` takes
 them per camera slice.
+
+Under tensor parallelism (parallel/tp.py) each conv computes its output
+channel shard where its width divides the model ranks, and each BatchNorm
+gathers the channels: after normalizing its shard (64 and 128 channels),
+or before it where it is replicated (32 channels, below tp.MIN_VECTOR).
 """
 
 from __future__ import annotations
@@ -24,15 +29,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv3x3 import channels_last, conv3x3
-from .resnet import BatchNorm2d, set_bn_groups
+from .resnet import BatchNorm2d, set_bn_groups, split_input
 
 
 class Conv3x3(nn.Module):
-    """3x3 SAME conv with bias through ops/conv3x3.py."""
+    """3x3 SAME conv with bias through ops/conv3x3.py; a weight of fewer
+    than `cout` output channels is this rank's shard under tensor
+    parallelism (models/resnet.py:split_input), and the output is that
+    channel shard."""
 
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.stride = stride
+        self.cout = cout
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cout))
         # He-normal, fan-out, as the JAX package's _KAIMING
@@ -40,7 +49,10 @@ class Conv3x3(nn.Module):
                                 nonlinearity="relu")
 
     def forward(self, x):
-        return conv3x3(x, self.weight, self.bias, self.stride)
+        bias = self.bias
+        if self.weight.shape[0] != self.cout:
+            x, bias = split_input(x, bias, self.weight.shape[0])
+        return conv3x3(x, self.weight, bias, self.stride)
 
 
 def stages(num_features: Sequence[int]) -> list:

@@ -51,6 +51,18 @@ The link's bn1 takes its two-pass statistics the same way
 all camera slices stacked in one call, before bn2 folds it with the global
 count. The kernel itself does not change. Without a process group none of
 this runs and no collective is called.
+
+Tensor parallelism (parallel/tp.py): a conv whose weight holds fewer output
+channels than the layer's width is this rank's shard. It takes its whole
+input through ``copy_to_model`` and returns its channel shard; the
+BatchNorm after it normalizes the shard (statistics over the data ranks)
+and gathers the channels, or, where the BatchNorm is replicated, gathers
+them first. The link takes conv1's shard, bn1's moments on it, and gathers
+the pre-BN activation and the folded (scale, shift) before the kernel,
+which then runs conv2's Cout shard (tp.link_route: or conv2's whole weight
+where the shard is too narrow for the kernel); bn2 folds the shard's
+stats and applies them to the shard, which is then gathered. The head's
+logits are gathered before the decode.
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ import torch.nn.functional as F
 
 from ..ops.conv_bn import fused_link, make_stats_fold
 from ..parallel import collectives as C
+from ..parallel import tp
 
 # {depth: (block kind, blocks per stage)}
 RESNET_SPEC = {
@@ -72,18 +85,36 @@ RESNET_SPEC = {
 }
 
 
+def split_input(x, bias, shard: int):
+    """A layer whose weight holds a shard of `shard` output channels: its
+    input through copy_to_model and its bias cut to the shard (a
+    replicated bias by model_slice)."""
+    if bias is not None and bias.shape[0] != shard:
+        bias = C.model_slice(bias)
+    return C.copy_to_model(x), bias
+
+
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d whose fp32 weight (and bias) is cast to the input's type."""
+    """nn.Conv2d whose fp32 weight (and bias) is cast to the input's type;
+    a weight of fewer output channels than out_channels is this rank's
+    shard, and the output is that channel shard (module docstring)."""
 
     def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        bias = self.bias
+        if self.weight.shape[0] != self.out_channels:
+            x, bias = split_input(x, bias, self.weight.shape[0])
+        bias = None if bias is None else bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """nn.ConvTranspose2d whose fp32 weight is cast to the input's type."""
+    """nn.ConvTranspose2d whose fp32 weight is cast to the input's type; a
+    weight of fewer output channels (dim 1) than out_channels is this
+    rank's shard, and the output is that channel shard."""
 
     def forward(self, x):
+        if self.weight.shape[1] != self.out_channels:
+            x = C.copy_to_model(x)
         return F.conv_transpose2d(x, self.weight.to(x.dtype), None,
                                   self.stride, self.padding,
                                   self.output_padding, self.groups,
@@ -141,7 +172,7 @@ def _combine_moments(mean_l, var_l):
     """The global batch's (mean, biased variance), each (G, C) fp32, from
     every rank's own over equal counts: the mean of the means, then of
     var + (mean - global mean)^2 (Chan's exact combine), two all-reduces."""
-    p = C.process_count()
+    p = C.data_size()
     mean = C.all_reduce_(mean_l.clone()) / p
     var = C.all_reduce_(var_l + (mean_l - mean) ** 2) / p
     return mean, var
@@ -164,7 +195,7 @@ class _SyncedBatchNorm(torch.autograd.Function):
         x = x.contiguous(memory_format=_memory_format(x))
         slices = camera_slices(x, groups)
         b = slices[0].shape[0]
-        n = b * x.shape[2] * x.shape[3] * C.process_count()
+        n = b * x.shape[2] * x.shape[3] * C.data_size()
         if x.is_cuda:
             local = [torch.batch_norm_stats(xs, eps) for xs in slices]
             mean_l = torch.stack([m for m, _ in local])
@@ -229,11 +260,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's train-mode semantics (see the module
     docstring), per camera slice under ``groups`` > 1; eval is
     nn.BatchNorm2d's. In a process group the train-mode statistics are the
-    global batch's (``_SyncedBatchNorm``)."""
+    global batch's (``_SyncedBatchNorm``). Under tensor parallelism a
+    BatchNorm whose parameters are a channel shard normalizes the input's
+    shard and returns the channels gathered; a replicated one gathers a
+    sharded input first."""
 
     groups = 1
 
     def forward(self, x):
+        width = self.weight.shape[0]
+        if width == self.num_features:
+            return self._forward(tp.full_channels(x, width))
+        if x.shape[1] != width:
+            raise ValueError(f"BatchNorm of a {width}-channel shard given "
+                             f"{x.shape[1]} channels")
+        return C.gather_channels(self._forward(x))
+
+    def _forward(self, x):
         if not self.training:
             return super().forward(x)
         if C.is_distributed():
@@ -293,7 +336,7 @@ def synced_moments(x, groups: int):
     x over the global batch (that camera's slices on every rank): two-pass,
     biased, differentiable through the two all-reduces."""
     xf = x.float().unflatten(0, (groups, -1))
-    n = xf.shape[1] * xf.shape[3] * xf.shape[4] * C.process_count()
+    n = xf.shape[1] * xf.shape[3] * xf.shape[4] * C.data_size()
     mean = C.psum_data(xf.sum(dim=_SLICE_DIMS)) / n
     var = C.psum_data(((xf - _per_channel(mean)) ** 2).sum(
         dim=_SLICE_DIMS)) / n
@@ -360,20 +403,37 @@ class Bottleneck(nn.Module):
     def _synced_link(self, y):
         """The train-mode link in a process group: bn1's statistics over
         the global batch, one launch per camera slice, and the slices'
-        (sum, sumsq) all-reduced in one call before bn2 folds them."""
+        (sum, sumsq) all-reduced in one call before bn2 folds them; under
+        tensor parallelism on conv1's and conv2's channel shards (module
+        docstring), the output gathered."""
         g = self.bn1.groups
         mean, var = synced_moments(y, g)
         for m, v in zip(mean, var):
             update_running_stats(self.bn1, m, v)
         scale = self.bn1.weight * torch.rsqrt(var + self.bn1.eps)  # (G, C)
         shift = self.bn1.bias - mean * scale
-        outs = [fused_link(ys, self.conv2.weight, scale[i], shift[i])
+        w = self.conv2.weight
+        shard = w.shape[0]
+        route = None
+        if shard != self.conv2.out_channels:
+            # the kernel's input channels whole on every model rank; its
+            # gradients for them, from this rank's Cout shard, summed
+            y, scale, shift = (C.copy_to_model(C.gather_channels(t))
+                               for t in (y, scale, shift))
+            route = tp.link_route(shard)
+            if route == "gathered_weight":
+                w = C.gather_channels(w, 0)
+        outs = [fused_link(ys, w, scale[i], shift[i])
                 for i, ys in enumerate(camera_slices(y, g))]
+        if route == "gathered_weight":
+            outs = [(tp.take_shard(ys, 1), tp.take_shard(st, 1))
+                    for ys, st in outs]
         stats = C.psum_data(torch.stack([s for _, s in outs]))  # (G, 2, C)
         ys = outs[0][0]
-        n = ys.shape[0] * ys.shape[2] * ys.shape[3] * C.process_count()
-        return _cat([apply_stats(self.bn2, ys, st, n)
-                     for (ys, _), st in zip(outs, stats)])
+        n = ys.shape[0] * ys.shape[2] * ys.shape[3] * C.data_size()
+        y = _cat([apply_stats(self.bn2, ys, st, n)
+                  for (ys, _), st in zip(outs, stats)])
+        return tp.full_channels(y, self.conv2.out_channels)
 
     def forward(self, x):
         y = self.conv1(x)
@@ -460,8 +520,10 @@ class DeconvHead(nn.Module):
     def forward(self, x):
         x = self.features[:-1](x)
         # the decode kernel reads each joint's volume as one contiguous block,
-        # so the logits are produced in NCHW memory
-        x = self.features[-1](x.contiguous())
+        # so the logits are produced in NCHW memory (and gathered whole
+        # under tensor parallelism: the decode runs on every model rank)
+        final = self.features[-1]
+        x = tp.full_channels(final(x.contiguous()), final.out_channels)
         return x.float() if self.fp32_logits else x
 
 

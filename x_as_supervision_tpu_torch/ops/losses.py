@@ -20,19 +20,19 @@ from ..parallel import collectives as C
 
 
 def global_mean(x):
-    """Mean of x over the global batch (the shards are equal): x.mean()
-    without a process group."""
+    """Mean of x over the global batch (the data ranks' shards are equal):
+    x.mean() without a process group."""
     if not C.is_distributed():
         return x.mean()
-    return C.psum_data(x.sum()) / (x.numel() * C.process_count())
+    return C.psum_data(x.sum()) / (x.numel() * C.data_size())
 
 
 def share_of_min(shares):
-    """This rank's share of min_h G[h], where G = the sum over the ranks of
-    `shares` (H,), each rank's shares of H batch means: the minimum is
-    chosen from G (the same on every rank), and its gradient split evenly
-    among tied minima as torch.amin splits it. Summed over the ranks it is
-    min_h G[h]."""
+    """This rank's share of min_h G[h], where G = the sum over the data
+    ranks of `shares` (H,), each rank's shares of H batch means: the
+    minimum is chosen from G (the same on every rank), and its gradient
+    split evenly among tied minima as torch.amin splits it. Summed over
+    the ranks it is min_h G[h]."""
     total = C.psum_data(shares.detach())
     tied = (total == total.min()).to(shares.dtype)
     return (shares * tied).sum() / tied.sum()

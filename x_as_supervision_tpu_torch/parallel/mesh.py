@@ -16,12 +16,22 @@ shard (data/loader.py's ``num_shards`` and ``shard_index``: each rank
 builds only its rows of each global batch) and to identical initialization
 on every rank from the seed that rank 0 broadcasts. Without a process group
 every function here is the one-process answer and calls no collective.
+
+Tensor parallelism (``train_params.model_parallelism`` = m, parallel/tp.py)
+lays the ranks out as ``make_mesh``'s (data, model) device grid: rank r is
+(data r // m, model r % m). ``make_grid(m)`` builds the process groups of
+that grid, one data group per model index (the ranks that hold the same
+channel shard and split the batch) and one model group per data index (the
+ranks that read the same rows and split the channels). The data group
+carries every reduction over the batch (parallel/collectives.py); with m = 1
+it is the whole world and no group is made.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -55,20 +65,25 @@ def local_rank() -> int:
 def default_backend(device=None) -> str:
     """NCCL for ranks on CUDA cards (one card per rank), gloo for ranks on
     the CPU. Two ranks that share one card need gloo: NCCL refuses two ranks
-    on one device."""
+    on one device, so where a host's ranks (torchrun's
+    ``LOCAL_WORLD_SIZE``) outnumber its cards the answer is gloo."""
     if device is not None and torch.device(device).type == "cpu":
         return "gloo"
-    return "nccl" if torch.cuda.is_available() else "gloo"
+    if not torch.cuda.is_available():
+        return "gloo"
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    return "gloo" if local > torch.cuda.device_count() else "nccl"
 
 
 def rank_device(device=None):
     """The device this rank runs on: `device` when given, else, in a
-    process group on a host with cards, ``cuda:<local rank>``; else None
+    process group on a host with cards, ``cuda:<local rank>`` (modulo the
+    cards, where more ranks than cards share them); else None
     (serve.resolve_device: the card)."""
     if device is not None:
         return device
     if is_distributed() and torch.cuda.is_available():
-        return torch.device("cuda", local_rank())
+        return torch.device("cuda", local_rank() % torch.cuda.device_count())
     return None
 
 
@@ -118,19 +133,103 @@ def initialize_multihost(coordinator: str | None = None,
 
 
 def shutdown() -> None:
-    """Leave the process group, where there is one."""
+    """Leave the process group (and its grid), where there is one."""
+    global _GRID
+    _GRID = None
     if is_distributed():
         dist.destroy_process_group()
 
 
+@dataclass(frozen=True)
+class Grid:
+    """This rank's place in the (data, model) grid of make_grid: m model
+    ranks per data index, and the two process groups this rank is in."""
+
+    m: int
+    data_group: object
+    model_group: object
+
+
+_GRID: Grid | None = None
+
+
+def make_grid(m: int) -> None:
+    """Lay the ranks out as a (world / m, m) grid (the JAX package's
+    ``make_mesh(model_parallelism=m)``): rank r is (data r // m, model
+    r % m). Raises where m does not divide the world, one process counting
+    as a world of one. Every rank creates every group, in the same order
+    (torch.distributed's rule); m = 1 makes none (the data group is the
+    world)."""
+    global _GRID
+    world = process_count()
+    if m < 1 or world % m:
+        raise ValueError(f"{world} processes not divisible by model={m}")
+    _GRID = None
+    if m == 1:
+        return
+    rank = process_index()
+    mine = {}
+    for j in range(m):
+        ranks = list(range(j, world, m))
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine["data"] = group
+    for d in range(world // m):
+        ranks = list(range(d * m, (d + 1) * m))
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine["model"] = group
+    _GRID = Grid(m, mine["data"], mine["model"])
+
+
+def _grid() -> Grid | None:
+    return _GRID if is_distributed() else None
+
+
+def model_size() -> int:
+    """m: the ranks that split each layer's channels (1 without a grid)."""
+    grid = _grid()
+    return grid.m if grid is not None else 1
+
+
+def model_index() -> int:
+    """This rank's channel shard: rank % m."""
+    return process_index() % model_size()
+
+
+def data_size() -> int:
+    """The ranks that split the global batch: world / m."""
+    return process_count() // model_size()
+
+
+def data_index() -> int:
+    """This rank's rows of the global batch: rank // m."""
+    return process_index() // model_size()
+
+
+def data_group():
+    """The process group of this rank's data ranks (None: the world)."""
+    grid = _grid()
+    return grid.data_group if grid is not None else None
+
+
+def model_group():
+    """The process group of this rank's model ranks (None without a
+    grid)."""
+    grid = _grid()
+    return grid.model_group if grid is not None else None
+
+
 def process_local_batch_slice(global_batch: int) -> tuple[int, int]:
     """(local batch size, offset) of this process's rows of each global
-    batch, as the loader shards it (DistributedSampler's equal shards)."""
-    n = process_count()
+    batch, as the loader shards it (DistributedSampler's equal shards over
+    the data ranks; the m model ranks of one data index read the same
+    rows)."""
+    n = data_size()
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by {n}")
     local = global_batch // n
-    return local, process_index() * local
+    return local, data_index() * local
 
 
 def broadcast_object(obj, src: int = 0):
@@ -142,7 +241,7 @@ def broadcast_object(obj, src: int = 0):
 
     box = [obj]
     dist.broadcast_object_list(box, src=src)
-    COUNTS.add("broadcast", 0)
+    COUNTS.add("broadcast/world", 0)
     return box[0]
 
 
@@ -151,15 +250,5 @@ def barrier() -> None:
     if is_distributed():
         from .collectives import COUNTS
 
-        COUNTS.add("barrier", 0)
+        COUNTS.add("barrier/world", 0)
         dist.barrier()
-
-
-def check_model_parallelism(n: int) -> None:
-    """``train_params.model_parallelism``: > 1 is accepted and runs pure
-    data parallelism, the same function, until tensor parallelism
-    (the JAX package's parallel/tp.py) is ported; said once."""
-    if n > 1 and process_index() == 0:
-        print(f"model_parallelism={n}: tensor parallelism is not ported; "
-              "running pure data parallelism (the same function)",
-              flush=True)

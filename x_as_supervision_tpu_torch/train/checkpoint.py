@@ -21,7 +21,11 @@ and the other way round.
 
 Data parallelism (parallel/): every rank holds the same state, so rank 0
 alone writes it and every rank waits at a barrier until the file is whole;
-every rank restores from that one file.
+every rank restores from that one file. Under tensor parallelism
+(parallel/tp.py) the model ranks gather their shards into the whole state
+first, so the file is the one a single process writes, whatever the
+layout of the run that wrote it or reads it; a restore into a split state
+takes this rank's shards of it.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import re
 
 import torch
 
-from ..parallel import mesh
+from ..parallel import mesh, tp
 from .state import TrainState
 
 _CKPT_RE = re.compile(r"^(\d{5})_ckpt$")
@@ -78,13 +82,15 @@ def state_dict(state: TrainState) -> dict:
 
 def save_checkpoint(save_dir: str, epoch: int, state: TrainState) -> str:
     """Writes ``{epoch:05d}_ckpt/state.pt`` (through a temporary file, so a
-    checkpoint that exists is whole; in a process group rank 0 writes and
-    every rank returns after it has); returns the directory."""
+    checkpoint that exists is whole; in a process group rank 0 writes the
+    whole state, gathered over the model ranks, and every rank returns
+    after it has); returns the directory."""
     path = ckpt_path(save_dir, epoch)
+    whole = tp.gather_state(state, state_dict(state))
     if mesh.process_index() == 0:
         os.makedirs(path, exist_ok=True)
         tmp = os.path.join(path, STATE_FILE + ".tmp")
-        torch.save(state_dict(state), tmp)
+        torch.save(whole, tmp)
         os.replace(tmp, os.path.join(path, STATE_FILE))
     mesh.barrier()
     return path
@@ -102,8 +108,15 @@ def restore_resume(path: str, state: TrainState) -> TrainState:
     onto the CPU; the weights and Adam moments go to the devices of the
     state's parameters, the Adam step counts stay on the CPU (as a fresh
     run keeps them) and the carried gradient goes to its parameter's
-    device."""
-    raw = load_raw(path, "cpu")
+    device. A split state takes its shards (parallel/tp.py)."""
+    return load_state(state, load_raw(path, "cpu"))
+
+
+def load_state(state: TrainState, raw: dict) -> TrainState:
+    """restore_resume from `raw`, a whole state_dict() (a checkpoint's, or
+    a copy of another state's: the optimizers keep the tensors they are
+    given)."""
+    raw = tp.shard_raw(raw, state)
     for name in _MODULES:
         module = getattr(state.spec, name)
         if module is not None:
@@ -113,7 +126,7 @@ def restore_resume(path: str, state: TrainState) -> TrainState:
         state.opt_disc.load_state_dict(raw["opt_disc"])
     state.det_updates = int(raw["det_updates"])
     state.disc_updates = int(raw["disc_updates"])
-    state.pending_disc_grads = [g.to(p.device) for g, p in zip(
+    state.pending_disc_grads = [g.to(p.device, copy=True) for g, p in zip(
         raw["pending_disc_grads"], state.disc_params, strict=True)]
     state.step = int(raw["step"])
     state.epoch = int(raw["epoch"])
@@ -127,8 +140,9 @@ def _same_shapes(a: dict, b: dict) -> bool:
 def restore_finetune(path: str, state: TrainState) -> TrainState:
     """Weights and statistics only, in place into a fresh `state`: its
     optimizers, counters, carried gradient, step and epoch stay fresh; a
-    discriminator of other shapes stays fresh."""
-    raw = load_raw(path, "cpu")
+    discriminator of other shapes stays fresh. A split state takes its
+    shards."""
+    raw = tp.shard_raw(load_raw(path, "cpu"), state, modules_only=True)
     for name in ("detector", "physique"):
         module = getattr(state.spec, name)
         if module is not None:

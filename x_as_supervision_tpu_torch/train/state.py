@@ -29,6 +29,14 @@ one flat all-reduce (``C.psum_flat``). Every rank then applies the same
 update, and the carried gradient is the global one. The metrics returned
 are global values (one more small all-reduce). Without a process group
 nothing of this runs.
+
+Tensor parallelism (parallel/tp.py): ``tp.shard_state`` cuts the modules,
+both Adams and the carried gradient to this rank's channel shards and
+records the split dims in ``shard_dims``. Adam then works on the shards,
+elementwise as ever; the flat all-reduce sums over the data ranks only (a
+shard's gradient is local to its model rank), and the replicated
+gradients and running statistics are taken from model rank 0
+(``tp.sync_replicated``).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel import collectives as C
+from ..parallel import tp
 
 from ..models.composed import (
     GanSpec,
@@ -78,6 +87,29 @@ class TrainState:
                  steps_per_epoch: int, disc_every: int = 1,
                  gen_every: int = 1):
         self.spec = spec
+        # {"<module>.<key>": dim} of the tensors split over the model ranks
+        # (parallel/tp.py:shard_state); empty: the whole state
+        self.shard_dims: dict = {}
+        self.bind_params()
+        milestones = train_params.get("epoch_milestones", [])
+        self.lr_det = multistep_schedule(
+            float(train_params["lr_kp_detector"]), milestones,
+            steps_per_epoch, every=gen_every)
+        self.lr_disc = multistep_schedule(
+            float(train_params.get("lr_discriminator", 0.0)), milestones,
+            steps_per_epoch, every=disc_every)
+        self.det_updates = 0
+        self.disc_updates = 0
+        self.pending_disc_grads = [torch.zeros_like(p)
+                                   for p in self.disc_params]
+        self.step = 0
+        self.epoch = 0
+
+    def bind_params(self) -> None:
+        """Collect the modules' parameters (the generator's: the detector's
+        and the physique net's; the discriminator's) and build both Adams
+        on them, fresh."""
+        spec = self.spec
         gen = [("detector." + n, p)
                for n, p in spec.detector.named_parameters()]
         if spec.physique is not None:
@@ -89,21 +121,8 @@ class TrainState:
         self.gen_params = [p for _, p in gen]
         self.disc_names = [n for n, _ in disc]
         self.disc_params = [p for _, p in disc]
-        milestones = train_params.get("epoch_milestones", [])
-        self.lr_det = multistep_schedule(
-            float(train_params["lr_kp_detector"]), milestones,
-            steps_per_epoch, every=gen_every)
-        self.lr_disc = multistep_schedule(
-            float(train_params.get("lr_discriminator", 0.0)), milestones,
-            steps_per_epoch, every=disc_every)
         self.opt_det = _adam(self.gen_params)
         self.opt_disc = _adam(self.disc_params) if self.disc_params else None
-        self.det_updates = 0
-        self.disc_updates = 0
-        self.pending_disc_grads = [torch.zeros_like(p)
-                                   for p in self.disc_params]
-        self.step = 0
-        self.epoch = 0
 
 
 def _filled(grads, params):
@@ -197,6 +216,7 @@ def train_step(state: TrainState, batch: dict,
                                           outputs=d_out, rot_u=rot_disc)
         g_gen, g_disc, d_grads = C.psum_flat(
             g_gen, g_disc, _grads(loss_disc, state.disc_params))
+        tp.sync_replicated(state, g_gen, d_grads, g_disc)
         _update_disc(state, d_grads)
         _update_gen(state, g_gen)
         state.pending_disc_grads = g_disc
@@ -206,6 +226,7 @@ def train_step(state: TrainState, batch: dict,
             loss_disc = discriminator_forward(spec, batch, generator,
                                               outputs=d_out, rot_u=rot_disc)
             (d_grads,) = C.psum_flat(_grads(loss_disc, state.disc_params))
+            tp.sync_replicated(state, [], d_grads, [])
             _update_disc(state, d_grads)
             state.pending_disc_grads = [torch.zeros_like(p)
                                         for p in state.disc_params]
@@ -214,6 +235,7 @@ def train_step(state: TrainState, batch: dict,
             total, losses, _, g_gen, g_disc = _gen_losses(
                 state, batch, generator, g_out, rot_gen)
             g_gen, g_disc = C.psum_flat(g_gen, g_disc)
+            tp.sync_replicated(state, g_gen, [], g_disc)
             _update_gen(state, g_gen)
             state.pending_disc_grads = [
                 c + g for c, g in zip(state.pending_disc_grads, g_disc)]

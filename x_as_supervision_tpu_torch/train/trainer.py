@@ -32,6 +32,15 @@ global batch ``train_params.batch_size``. The rules by rank:
   * rank 0 alone prints the step lines and writes TensorBoard, the
     profiler trace and the checkpoints; a barrier follows each save;
   * every rank's metrics are the global values.
+
+Tensor parallelism (``train_params.model_parallelism`` = m > 1, the JAX
+trainer's key): the P ranks form parallel/mesh.py's (P / m, m) grid (m
+must divide P). After the modules are initialized (and restored from a
+checkpoint, which is always the whole state) the train state is cut to each
+rank's channel shards (parallel/tp.py:shard_state); the loader shards the
+global batch over the P / m data ranks, so the m model ranks of one data
+index read the same rows; the seed broadcast and rank 0's duties are as
+above, and checkpoints are the whole state, gathered.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ import torch
 
 from .. import weights
 from ..data.loader import BatchLoader
-from ..parallel import mesh
+from ..parallel import mesh, tp
 from ..serve import resolve_device
 from . import checkpoint as ckpt
 from .evaluator import fetch
@@ -143,15 +152,17 @@ class Trainer:
         self.device = resolve_device(mesh.rank_device(device))
         self.seed = draw_seed(seed)
         self.rank = mesh.process_index()
-        tp = config["train_params"]
-        self.batch_size = tp["batch_size"]
-        self.num_epochs = tp["num_epochs"]
-        self.ckpt_freq = tp.get("checkpoint_freq", 1)
+        tp_params = config["train_params"]
+        # the (data, model) grid: raises where the world does not divide
+        mesh.make_grid(int(tp_params.get("model_parallelism", 1)))
+        self.batch_size = tp_params["batch_size"]
+        self.num_epochs = tp_params["num_epochs"]
+        self.ckpt_freq = tp_params.get("checkpoint_freq", 1)
         self.disc_every, self.gen_every = update_intervals(config)
         # scalars every log_interval steps (each log is one device-to-host
         # fetch), image panels on the steps that are also log steps, every
         # lcm(50, log_interval) (reference: train.py:196-199)
-        self.log_interval = int(tp.get("log_interval", 1))
+        self.log_interval = int(tp_params.get("log_interval", 1))
         self.vis_interval = math.lcm(50, self.log_interval)
 
         self.spec = build_gan_spec(config, dtype)
@@ -172,7 +183,7 @@ class Trainer:
                 module.to(self.device)
         # the optimizers' milestones in steps of the epochs the dataset
         # holds, as the JAX trainer builds them
-        self.state = TrainState(self.spec, tp,
+        self.state = TrainState(self.spec, tp_params,
                                 max(1, len(dataset) // self.batch_size),
                                 self.disc_every, self.gen_every)
         self.images_per_step = self.batch_size * len(self.spec.cam_id_list)
@@ -184,14 +195,15 @@ class Trainer:
             ckpt.restore_resume(checkpoint_path, self.state)
             self.epochs_run = self.state.epoch
             self._say(f"Resuming training from epoch {self.epochs_run}")
-        mesh.check_model_parallelism(int(tp.get("model_parallelism", 1)))
+        # this rank's channel shards (nothing without tensor parallelism)
+        tp.shard_state(self.state)
 
-        # this rank's rows of each global batch
+        # this rank's rows of each global batch (its data index's)
         self.loader = BatchLoader(dataset, batch_size=self.batch_size,
                                   shuffle=True, num_workers=num_workers,
                                   prefetch=2, seed=self.seed,
-                                  num_shards=mesh.process_count(),
-                                  shard_index=self.rank)
+                                  num_shards=mesh.data_size(),
+                                  shard_index=mesh.data_index())
         self.steps_per_epoch = len(self.loader)
         mp = config["model_params"]
         self.tb_parent_ids = np.array(mp["parent_ids"])
