@@ -5,7 +5,8 @@ version at the shapes the serving and training paths give it, drives the
 serving path once, takes a few steps of the flagship fused GAN training
 step, and trains, checkpoints and evaluates the flagship config through the
 port's train and eval CLIs, on the synthetic fixture and on a dataset read
-from disk.
+from disk; renders the self-rendered campaign with the port's offline tools
+and runs S1 -> eval -> S2 -> eval on it.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -217,11 +218,45 @@ Phases, each of which fails the run (nonzero exit, no result line):
    plain; one step each after a warm-up of each), with each rank's peak
    memory, launches and collectives (calls and MB by group) per step.
 
+15. campaign, run after phase 12 and before phase 13: the self-rendered
+   campaign through the port's offline tools and CLIs. (a) The render CLI
+   (``python -m x_as_supervision_tpu_torch.tools.render_campaign``, called
+   in this process, SMPL on the card): the SMPL assets of the procedural
+   humanoid, 12 pseudo segments of 24 SURREAL-format frames swept at 4
+   samples each into the pseudo stream, and campaign_train (12 folders x 4
+   cameras) and campaign_valid (6 x 4) at 8 frames of 384^2 in the H36M
+   layout; images or frames per second of each stage, CUDA events around
+   each SMPL forward. (b) Card against CPU: two folders (every camera) and
+   one segment deleted from a copy and rendered again with ``--device
+   cpu``, the sweep with them, held to the card's render under
+   x_as_supervision_tpu_torch.checks.CAMPAIGN_BOUNDS (the CPU tests' bounds
+   against the JAX package's render). (c) Regenerate-or-reuse: the same
+   command again renders nothing; then one camera's last mask, one
+   segment's _info.mat and the swept pseudo output are deleted, the command
+   renders them again, and ``python -m
+   x_as_supervision_tpu_torch.tools.campaign_manifest --check`` against the
+   first manifest passes. (d) Campaign_SurS1 (its JSON copy, every path
+   into the render, one epoch) through the train CLI without --synthetic:
+   96 frames padded by a batch, 4 steps of 4 cameras x 32 at 256^2, bf16,
+   the launches per step of phase 6 (the config's physique widths are the
+   flagship's [32, 64, 128]: conv3x3 14 on tensor cores + 4 on CUDA cores),
+   CUDA events around each step and each batch's copy to the card, the
+   loader's wait per step; its checkpoint scored by the eval CLI in best
+   mode (2 batches, phase 8's launches per batch). (e) Campaign_SurS2
+   through the train CLI with ``--finetune --checkpoint`` of S1's
+   checkpoint, one epoch, the same counts, scored the same way.
+
+``python3 chip_smoke.py xl-render [OUT]`` renders the XL campaign
+(scripts/render_campaign_xl.sh's arguments) with the port on the card
+instead, and compares its manifest with the JAX package's
+benchmarks/campaign/xl_manifest.json (counts, and how many digests agree).
+
 Earlier lines carry the findings as JSON; the line before the last lists the
 kernels (launches per training step, per serving forward, per eval batch,
 per step on the per-camera path, per mono step, per eval2d batch, per step
-of the train CLI under torchrun: ``dp_launches``, and per step of each rank
-of the tensor-parallel train CLI: ``tp_launches``), and
+of the train CLI under torchrun: ``dp_launches``, per step of each rank
+of the tensor-parallel train CLI: ``tp_launches``, and per S1 step, S2 step
+and eval batch of the campaign: ``campaign_launches``), and
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -352,6 +387,37 @@ EVAL2D_LAUNCHES = {"integral_marginals": 1, "integral_marginals_bwd": 0,
                    "conv_bn_link": 7, "conv3x3": 0}
 MONO_LOSSES = ("physique_recons", "reconstruction", "smpl_gen",
                "smpl_pseudo_img")
+
+# the self-rendered campaign (tools/render_campaign.py) at the XL
+# campaign's image size: campaign_train (12 folders x 4 cameras) and
+# campaign_valid (6 x 4) at 8 frames, 12 pseudo segments of 24 frames swept
+# at 4 samples each (at most 48 pseudo frames: one pseudo batch of 32 and
+# more); S1 then S2 at full width through the train CLI, one epoch each
+# (96 frames padded by a batch: 128 samples, 4 steps of 4 cameras x 32),
+# each scored by the eval CLI (48 frames padded: 2 batches)
+CAMPAIGN_CONFIGS = ("Campaign_SurS1", "Campaign_SurS2")
+CAMPAIGN_FOLDERS = {"train_set": 12, "valid_set": 6}
+CAMPAIGN_FRAMES = 8
+CAMPAIGN_SEGMENTS = 12
+CAMPAIGN_SEGMENT_FRAMES = 24
+CAMPAIGN_RENDER = [
+    "--train_frames", str(CAMPAIGN_FRAMES),
+    "--valid_frames", str(CAMPAIGN_FRAMES),
+    "--pseudo_segments", str(CAMPAIGN_SEGMENTS),
+    "--pseudo_frames", str(CAMPAIGN_SEGMENT_FRAMES), "--sample_times", "4",
+    "--img_size", "384", "--seed", str(SEED),
+    "--train_set", "campaign_train", "--valid_set", "campaign_valid"]
+CAMPAIGN_STEPS = 4
+CAMPAIGN_EVAL_BATCHES = 2
+# the XL campaign (scripts/render_campaign_xl.sh's arguments) and the JAX
+# package's manifest of it
+XL_RENDER = [
+    "--train_set", "campaign_train_xl", "--valid_set", "campaign_valid_xl",
+    "--train_frames", "336", "--valid_frames", "80",
+    "--pseudo_segments", "375", "--pseudo_frames", "48",
+    "--sample_times", "12", "--img_size", "384", "--seed", "0"]
+XL_MANIFEST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmarks", "campaign", "xl_manifest.json")
 
 # data parallelism: two gloo ranks on the one card at this global batch per
 # camera (4 cameras x 16 = 64 fp32 images, 32 per rank: the bf16 step's
@@ -1724,11 +1790,13 @@ def phase_real_data(card: str) -> dict:
     return record
 
 
-def _timed_train_cli(cfg_path: str, log_dir: str, train_main=None):
-    """The train CLI (or `train_main`, another CLI's main) on `cfg_path`,
-    timed from outside: how long each step waits on the loader's queue, and
-    CUDA events around each train_step. Returns the Trainer and the run's
-    record."""
+def _timed_train_cli(cfg_path: str, log_dir: str, train_main=None,
+                     extra: tuple = ()):
+    """The train CLI (or `train_main`, another CLI's main) on `cfg_path`
+    with the flags `extra`, timed from outside: how long each step waits on
+    the loader's queue, and CUDA events around each train_step and around
+    each batch's copy to the card (``h2d_ms``, its MB ``h2d_mb``). Returns
+    the Trainer and the run's record."""
     import torch
 
     from x_as_supervision_tpu_torch.data.loader import BatchLoader
@@ -1738,8 +1806,20 @@ def _timed_train_cli(cfg_path: str, log_dir: str, train_main=None):
         from x_as_supervision_tpu_torch.train.__main__ import main as \
             train_main
 
-    waits, events = [], []
+    waits, events, copies, copy_mb = [], [], [], []
     epoch_fn, step_fn = BatchLoader.epoch, trainer_mod.train_step
+    copy_fn = trainer_mod.to_device
+
+    def timed_copy(batch, device):
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = copy_fn(batch, device)
+        pair[1].record()
+        copies.append(pair)
+        copy_mb.append(sum(v.numel() * v.element_size()
+                           for v in out.values()) / 1e6)
+        return out
 
     def timed_epoch(self, epoch=0):
         batches = epoch_fn(self, epoch)
@@ -1765,17 +1845,21 @@ def _timed_train_cli(cfg_path: str, log_dir: str, train_main=None):
         return out
 
     BatchLoader.epoch, trainer_mod.train_step = timed_epoch, timed_step
+    trainer_mod.to_device = timed_copy
     try:
         t0 = time.perf_counter()
         trainer = train_main(["--config", cfg_path, "--seed", str(SEED),
-                              "--log_dir", log_dir])
+                              "--log_dir", log_dir, *extra])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
     finally:
         BatchLoader.epoch, trainer_mod.train_step = epoch_fn, step_fn
+        trainer_mod.to_device = copy_fn
     return trainer, dict(train_cli_s=train_s,
                          step_ms=[a.elapsed_time(b) for a, b in events],
-                         loader_wait_ms=[w * 1e3 for w in waits])
+                         loader_wait_ms=[w * 1e3 for w in waits],
+                         h2d_ms=[a.elapsed_time(b) for a, b in copies],
+                         h2d_mb=copy_mb)
 
 
 def _loader_batch_ms(dataset) -> list[float]:
@@ -2721,6 +2805,274 @@ def phase_mono(card: str) -> dict:
         eval2d_fp32=eval_parity)
     emit(**record)
     record["kernel_cases"] = kernel_cases
+    return record
+
+
+# ---------------------------------------------------------------- campaign
+
+
+def _campaign_config(name: str, root: str) -> dict:
+    """The shipped config `name` (its JSON copy) with its dataset, pseudo
+    stream and SMPL paths in the render at `root`, for one epoch."""
+    with open(os.path.join(CONFIG_DIR, name + ".json")) as f:
+        cfg = json.load(f)
+    dp = cfg["dataset_params"]
+    dp["dataset"]["path"] = os.path.join(root, "hm36")
+    dp["smpl_pseudo_img"]["data_path"] = os.path.join(root,
+                                                      "surreal_h36m_pose")
+    cfg["model_params"]["smpl_layer_params"]["model_path"] = os.path.join(
+        root, "smpl_models")
+    cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
+    return cfg
+
+
+def _render_cli(root: str, device: str | None = None,
+                args: list = CAMPAIGN_RENDER) -> tuple[dict, str]:
+    """The port's render CLI (tools/render_campaign.py) into `root` on
+    `device` (the card when None), its printout kept; with CUDA events
+    around each SMPL forward of the segments and hm36 folders on the card
+    (``smpl_forward_ms``, per call with its batch). Returns its stage
+    record and printout."""
+    import contextlib
+    import io
+
+    import torch
+
+    from x_as_supervision_tpu_torch.tools import render_campaign as R
+
+    forward_fn, events = R.smpl_forward, []
+
+    def timed_forward(model, pose, *args, **kwargs):
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = forward_fn(model, pose, *args, **kwargs)
+        pair[1].record()
+        events.append((pair, pose.shape[0]))
+        return out
+
+    out = io.StringIO()
+    if device is None:
+        R.smpl_forward = timed_forward
+    try:
+        with contextlib.redirect_stdout(out):
+            stats = R.main(["--out", root, *args]
+                           + ([] if device is None else ["--device", device]))
+        if device is None:
+            torch.cuda.synchronize()
+    finally:
+        R.smpl_forward = forward_fn
+    stats["smpl_forward_ms"] = [(a.elapsed_time(b), n)
+                                for (a, b), n in events]
+    return stats, out.getvalue()
+
+
+def _campaign_folders(policy: str) -> list[str]:
+    from x_as_supervision_tpu_torch.data.hm36 import (SUBSET_POLICIES,
+                                                      all_folders)
+
+    _, _, start, end, subjects = SUBSET_POLICIES[policy]
+    return all_folders(subjects)[start:end]
+
+
+def _rates(stats: dict) -> dict:
+    """Images (or frames) per second of each stage of a render."""
+    return {k: v["count"] / v["seconds"] for k, v in stats.items()
+            if isinstance(v, dict) and v.get("count") and v["seconds"]}
+
+
+def _campaign_train(cfg_path: str, log_dir: str, what: str,
+                    extra: tuple = ()) -> tuple[dict, str]:
+    """One epoch of a campaign config through the train CLI on the render:
+    the launches per step (the flagship step's, by kernel and by path),
+    CUDA events around each step and each batch's copy to the card, the
+    loader's wait. Returns the run's record and its checkpoint."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    trainer, run = _timed_train_cli(cfg_path, log_dir, extra=extra)
+    dataset = trainer.dataset
+    check(type(dataset).__name__ == "hm36_Dataset"
+          and len(dataset) == CAMPAIGN_STEPS * TRAIN_BATCH
+          and trainer.images_per_step == TRAIN_IMAGES,
+          f"{what}: {type(dataset).__name__} of {len(dataset)} samples, "
+          f"{trainer.images_per_step} images a step")
+    check(trainer.state.step == CAMPAIGN_STEPS,
+          f"{what}: {trainer.state.step} steps, expected {CAMPAIGN_STEPS}")
+    run["launches_per_step"], run["path_launches_per_step"] = \
+        _check_train_launches(CAMPAIGN_STEPS, what)
+    check(len(run["step_ms"]) == len(run["loader_wait_ms"])
+          == len(run["h2d_ms"]) == CAMPAIGN_STEPS,
+          f"{what}: {len(run['step_ms'])} steps, "
+          f"{len(run['loader_wait_ms'])} waits, {len(run['h2d_ms'])} "
+          "copies timed")
+    check(trainer.history and all(
+        "loss/smpl_pseudo_img" in h and np.isfinite(list(h.values())).all()
+        for h in trainer.history), f"{what}: losses {trainer.history}")
+    run["losses"] = trainer.history
+    run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    run["batch_made_ms"] = [t * 1e3 for t in trainer.loader.batch_seconds]
+    steady = run["step_ms"][1:]
+    run.update(mean_step_ms=float(np.mean(steady)),
+               img_per_s=TRAIN_IMAGES / (float(np.mean(steady)) / 1e3),
+               mean_loader_wait_ms=float(np.mean(run["loader_wait_ms"][1:])),
+               mean_h2d_ms=float(np.mean(run["h2d_ms"][1:])),
+               mean_batch_made_ms=float(np.mean(run["batch_made_ms"][1:])))
+    (name,) = os.listdir(log_dir)
+    del trainer
+    torch.cuda.empty_cache()
+    return run, os.path.join(log_dir, name, "00000_ckpt")
+
+
+def phase_campaign(card: str) -> dict:
+    """The self-rendered campaign on the card: render, card against CPU,
+    regenerate-or-reuse, S1 -> eval -> S2 -> eval through the port's CLIs
+    (see the module docstring, phase 15). `card`: nvidia-smi's name and
+    power limit, for the record."""
+    import shutil
+    import tempfile
+
+    from x_as_supervision_tpu_torch import checks
+
+    try:
+        import cv2  # noqa: F401
+        import scipy.io  # noqa: F401
+    except ImportError as e:
+        raise SmokeFailure(f"campaign: {e.name} is not installed; the "
+                           "renderer writes its files with it") from None
+
+    with tempfile.TemporaryDirectory(prefix="xas_campaign_") as tmp:
+        root = os.path.join(tmp, "campaign")
+
+        # the render, SMPL on the card
+        t0 = time.perf_counter()
+        render, _ = _render_cli(root)
+        render["wall_s"] = time.perf_counter() - t0
+        want = {k: n * 4 * CAMPAIGN_FRAMES
+                for k, n in CAMPAIGN_FOLDERS.items()}
+        swept = render["sweep"]["count"]
+        check(render["device"] == "cuda"
+              and render["segments"]["count"]
+              == CAMPAIGN_SEGMENTS * CAMPAIGN_SEGMENT_FRAMES
+              and all(render[k]["count"] == n for k, n in want.items())
+              and swept >= TRAIN_BATCH,
+              f"campaign render: {render}")
+        forwards = render.pop("smpl_forward_ms")
+        check(len(forwards) == CAMPAIGN_SEGMENTS + sum(
+            CAMPAIGN_FOLDERS.values()),
+            f"campaign render: {len(forwards)} SMPL forwards timed")
+        render["smpl_forward_ms"] = dict(
+            calls=len(forwards), mean=float(np.mean([t for t, _ in
+                                                     forwards[1:]])),
+            batches=sorted({n for _, n in forwards}))
+        render["rates"] = _rates(render)
+        ref = os.path.join(tmp, "manifest_ref.json")
+        shutil.copy(os.path.join(root, "manifest.json"), ref)
+        with open(ref) as f:
+            manifest = json.load(f)
+
+        # card against CPU: two folders (one of each set, every camera)
+        # and one segment rendered again on the CPU, the sweep with them
+        cpu_root = os.path.join(tmp, "cpu")
+        shutil.copytree(root, cpu_root)
+        folders = [_campaign_folders("campaign_train")[0],
+                   _campaign_folders("campaign_valid")[-1]]
+        for folder in folders:
+            for cam in range(1, 5):
+                cf = f"{folder}_ca_{cam:02d}"
+                for sub in (("hm36", "images"), ("hm36", "annot"),
+                            ("sam_masks", "hm36")):
+                    shutil.rmtree(os.path.join(cpu_root, *sub, cf))
+        seg = CAMPAIGN_SEGMENTS - 1
+        shutil.rmtree(os.path.join(cpu_root, "surreal", "train",
+                                   f"run{seg % 4}", f"seq{seg}"))
+        shutil.rmtree(os.path.join(cpu_root, "surreal_h36m_pose"))
+        t0 = time.perf_counter()
+        cpu, _ = _render_cli(cpu_root, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        check(cpu["device"] == "cpu"
+              and cpu["train_set"]["count"] == cpu["valid_set"]["count"]
+              == 4 * CAMPAIGN_FRAMES
+              and cpu["segments"]["count"] == CAMPAIGN_SEGMENT_FRAMES,
+              f"campaign CPU render: {cpu}")
+        worst, bad = checks.campaign_diffs(root, cpu_root)
+        check(not bad, f"campaign card vs CPU: {bad[:8]}")
+        shutil.rmtree(cpu_root)
+        card_cpu = dict(folders=folders, segment=seg, wall_s=cpu_s,
+                        rates=_rates(cpu), worst=worst,
+                        bounds=checks.CAMPAIGN_BOUNDS)
+
+        # regenerate-or-reuse: the same command again renders nothing; then
+        # the three kinds of damage of an interrupted render, re-rendered,
+        # and the manifest check against the first manifest
+        t0 = time.perf_counter()
+        again, out = _render_cli(root)
+        reuse_s = time.perf_counter() - t0
+        check(all(again[k]["count"] == 0 for k in
+                  ("segments", "sweep", "train_set", "valid_set"))
+              and "pseudo dataset already swept" in out,
+              f"campaign reuse: {again}")
+        victim = sorted(manifest["data"]["hm36"])[5]
+        os.remove(os.path.join(root, "sam_masks", "hm36", victim,
+                               f"{victim}_{CAMPAIGN_FRAMES:06d}.png"))
+        os.remove(os.path.join(root, "surreal", "train", "run1", "seq1",
+                               "seg1_info.mat"))
+        shutil.rmtree(os.path.join(root, "surreal_h36m_pose"))
+        t0 = time.perf_counter()
+        regen, out = _render_cli(root)
+        regen_s = time.perf_counter() - t0
+        check("skipping" in out
+              and regen["train_set"]["count"] + regen["valid_set"]["count"]
+              == 4 * CAMPAIGN_FRAMES
+              and regen["segments"]["count"] == CAMPAIGN_SEGMENT_FRAMES
+              and regen["sweep"]["count"] == swept,
+              f"campaign regenerate: {regen}")
+        res = subprocess.run(
+            [sys.executable, "-m",
+             "x_as_supervision_tpu_torch.tools.campaign_manifest", root,
+             "--check", "--manifest", ref],
+            cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0 and "manifest check OK" in res.stdout,
+              f"campaign manifest check: {res.stdout[-2000:]}"
+              f"{res.stderr[-2000:]}")
+        regenerate = dict(reuse_s=reuse_s, regen_s=regen_s, victim=victim,
+                          rates=_rates(regen))
+
+        # S1 from scratch, scored; S2 finetuned from it, scored
+        cfg_paths = {}
+        for name in CAMPAIGN_CONFIGS:
+            cfg_paths[name] = os.path.join(tmp, name + ".json")
+            with open(cfg_paths[name], "w") as f:
+                json.dump(_campaign_config(name, root), f)
+        s1, s1_ckpt = _campaign_train(cfg_paths["Campaign_SurS1"],
+                                      os.path.join(tmp, "log_s1"),
+                                      "campaign S1 train CLI")
+        ev, s1_eval = _eval_cli(cfg_paths["Campaign_SurS1"], s1_ckpt,
+                                "best", synthetic=False)
+        check(type(ev.dataset).__name__ == "hm36_Dataset"
+              and not ev.dataset.is_train
+              and ev.num_batches == CAMPAIGN_EVAL_BATCHES,
+              f"campaign S1 eval: {type(ev.dataset).__name__}, "
+              f"{ev.num_batches} batches")
+        del ev
+        s2, s2_ckpt = _campaign_train(
+            cfg_paths["Campaign_SurS2"], os.path.join(tmp, "log_s2"),
+            "campaign S2 train CLI (finetune)",
+            extra=("--finetune", "--checkpoint", s1_ckpt))
+        check(all("loss/symmetry" in h for h in s2["losses"]),
+              f"campaign S2: losses {s2['losses']}")
+        ev, s2_eval = _eval_cli(cfg_paths["Campaign_SurS2"], s2_ckpt,
+                                "best", synthetic=False)
+        check(ev.num_batches == CAMPAIGN_EVAL_BATCHES,
+              f"campaign S2 eval: {ev.num_batches} batches")
+        del ev
+
+    record = dict(
+        phase="campaign", card=card, render_args=CAMPAIGN_RENDER,
+        render=render, card_vs_cpu=card_cpu, regenerate=regenerate,
+        s1=s1, s1_eval=s1_eval, s2=s2, s2_eval=s2_eval)
+    emit(**record)
     return record
 
 
@@ -3845,9 +4197,52 @@ def dp_rank_main(argv: list) -> int:
     return 0
 
 
+def xl_render_main(argv: list) -> int:
+    """``chip_smoke.py xl-render [OUT]``: the XL campaign
+    (scripts/render_campaign_xl.sh's arguments) rendered by the port's CLI
+    with SMPL on the card into OUT (a temporary directory, removed after,
+    when not given): wall time, size on disk, each stage's rate, and its
+    manifest against the JAX package's (benchmarks/campaign/xl_manifest.json:
+    counts, and how many digests agree). Prints one JSON line."""
+    import shutil
+
+    import torch
+
+    from x_as_supervision_tpu_torch import checks
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    tmp = None if argv else tempfile.mkdtemp(prefix="xas_xl_")
+    out = argv[0] if argv else os.path.join(tmp, "campaign_xl")
+    try:
+        t0 = time.perf_counter()
+        stats, _ = _render_cli(out, args=XL_RENDER)
+        wall_s = time.perf_counter() - t0
+        forwards = stats.pop("smpl_forward_ms")
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, names in os.walk(out) for f in names)
+        with open(os.path.join(out, "manifest.json")) as f:
+            got = json.load(f)
+        with open(XL_MANIFEST) as f:
+            ref = json.load(f)
+        emit(phase="xl_render", card=phase_device()["nvidia_smi"],
+             args=XL_RENDER, wall_s=wall_s, disk_gb=size / 1e9,
+             rates=_rates(stats), stages=stats,
+             smpl_forwards=len(forwards),
+             smpl_forward_ms=float(np.mean([t for t, _ in forwards[1:]])),
+             against_jax=checks.manifest_agreement(ref, got))
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "dp-rank":
         return dp_rank_main(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "xl-render":
+        return xl_render_main(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -3872,6 +4267,7 @@ def main() -> int:
         phase_real_data(device["nvidia_smi"])
         variants = phase_variants()
         mono = phase_mono(device["nvidia_smi"])
+        campaign = phase_campaign(device["nvidia_smi"])
         with tempfile.TemporaryDirectory() as root:
             dp = phase_dp(device["nvidia_smi"], root)
             tp = phase_tp(device["nvidia_smi"], root)
@@ -3928,6 +4324,10 @@ def main() -> int:
                 name],
             tp_path_launches=tp["train_cli"]["ranks"][0][
                 "path_launches_per_step"].get(name),
+            campaign_launches=dict(
+                s1_step=campaign["s1"]["launches_per_step"][name],
+                s2_step=campaign["s2"]["launches_per_step"][name],
+                eval_batch=campaign["s1_eval"]["launches_per_batch"][name]),
             mono_shape=mcase["shape"], mono_max_abs_err=mcase["max_abs_err"],
             mono_ms=mcase["ms"], mono_plain_ms=mcase["plain_ms"],
             mono_bound_ms=mcase["bound_ms"],

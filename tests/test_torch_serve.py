@@ -193,3 +193,7 @@ def test_port_imports_no_jax():
     # the 2D path's entry points and the figure writers
     for mod in ("eval2d", "train2d3d", "train.figures"):
         assert f"x_as_supervision_tpu_torch.{mod}" in names.split()
+    # the offline SMPL tools and their random stream
+    for mod in ("prng", "humanoid", "surreal_constructor",
+                "campaign_manifest", "render_campaign"):
+        assert f"x_as_supervision_tpu_torch.tools.{mod}" in names.split()

@@ -5,7 +5,8 @@ The JAX package beside it is the reference; this package imports nothing of
 it, nor JAX. What is ported so far is the serving path, the flagship fused
 GAN training step with its checkpoints, TensorBoard logging and the train
 CLI's flags, the eval that scores them, the datasets they read from disk,
-and data-parallel training and eval over several processes:
+data- and tensor-parallel training and eval over several processes, and
+the offline tools that render the self-rendered campaign:
 
   serve.py    PoseEstimator: preprocess, batched detector forward, pixels,
               patch -> world lift
@@ -28,6 +29,9 @@ and data-parallel training and eval over several processes:
               port's own FMM build), the dataset classes and basic_data;
               the synthetic multi-camera pose fixture; the epoch-shuffled
               thread-pool batch loader
+  tools/      the offline SMPL tools: JAX's threefry stream in numpy, the
+              procedural humanoid, the SURREAL constructor, the
+              self-rendered campaign and its manifest
   checks.py   helpers shared by the tests and chip_smoke.py (the anchored
               eval fixture, eval_result.txt reader, state comparison,
               TensorBoard event reader, miniature on-disk datasets)

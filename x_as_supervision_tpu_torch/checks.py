@@ -653,3 +653,206 @@ def write_mini_mpii(root, n_images: int = 8, size_hw=(720, 1280),
     savemat(os.path.join(path, "annot", "mpii_gt_valid.mat"),
             {"headboxes_src": heads})
     return path, mask_path
+
+
+# ------------------------------------------------------------ campaign renders
+
+# How far two renders of one campaign (tools/render_campaign.py, the same
+# arguments) may differ when their SMPL forwards round differently (the JAX
+# package's XLA against the port, or the card against the CPU): a vertex
+# moves by an fp32 ulp or two, which moves the printed key points of
+# matlab_meta.txt (mm, 4 decimals: 1.2e-4 mm is one ulp of a metre-scale
+# coordinate) and can move a rounded splat centre or radius by a pixel. The
+# SURREAL constructor truncates its crop box's corners to integers, and they
+# land on integers (the pelvis sits at the image centre, the box is +-1 m
+# at 8 m), so a frame's crop can move by one pixel: its joints then move by
+# up to about 3 px of 256 (a pixel of the 320 x 240 frame is 1.7 px of the
+# 256^2 crop, and the crop's width can change by one), its noisy background
+# everywhere, and its mask along the silhouette's edge (a band about 1.7 px
+# wide: 1-4 % of the crop). Measured: the port on a CPU against the JAX
+# package 0.023 and 1.0 %; an H100 against its host's CPU 0.026 and 1.6 %.
+CAMPAIGN_BOUNDS = dict(
+    meta_units=5,            # kp numbers: units of the printed last digit
+    jpg_share=5e-3,          # decoded hm36 JPEG pixels that differ
+    mask_share=1e-3,         # hm36 and segment mask pixels that differ
+    mat_pose=1e-6,           # _info.mat poses (rad)
+    mat_joints3d=1e-5,       # _info.mat joints3D (m)
+    mat_joints2d=1e-3,       # _info.mat joints2D (px)
+    pseudo_joints=1e-4,      # pseudo joints (xy normalized, z in m)
+    pseudo_image_share=5e-3,  # pseudo image pixels, the crop unmoved
+    pseudo_moved_xy=0.04,    # pseudo joints' xy where the crop moved
+    pseudo_moved_mask_share=0.05,  # pseudo mask pixels there
+)
+
+
+def _tree(root: str) -> list[str]:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, names in os.walk(root) for f in names)
+
+
+def _pixel_share(path_a: str, path_b: str) -> float:
+    """The share of pixels (any channel) that differ between two images."""
+    import cv2
+
+    a = cv2.imread(path_a, cv2.IMREAD_UNCHANGED)
+    b = cv2.imread(path_b, cv2.IMREAD_UNCHANGED)
+    if a is None or b is None or a.shape != b.shape:
+        return 1.0
+    diff = a != b
+    return float((diff.any(-1) if diff.ndim == 3 else diff).mean())
+
+
+def _meta_units(path_a: str, path_b: str) -> tuple[int, list[str]]:
+    """The largest difference of two matlab_meta.txt files' kp numbers in
+    units of their last printed digit, and the other lines that differ."""
+    la, lb = (open(p).read().splitlines() for p in (path_a, path_b))
+    units, other = 0, []
+    if len(la) != len(lb):
+        return 0, [f"{len(la)} != {len(lb)} lines"]
+    for u, v in zip(la, lb):
+        wu, wv = u.split(), v.split()
+        if wu[:1] == wv[:1] == ["kp"] and len(wu) == len(wv):
+            units = max([units] + [
+                abs(int(round(float(p) * 1e4)) - int(round(float(q) * 1e4)))
+                for p, q in zip(wu[1:], wv[1:])])
+        elif u != v:
+            other.append(u)
+    return units, other
+
+
+def campaign_diffs(root_a: str, root_b: str) -> tuple[dict, list]:
+    """Two campaign renders of the same arguments, file by file: the
+    largest difference of each kind, and a list of every bound of
+    CAMPAIGN_BOUNDS that a file breaks (empty when the renders agree)."""
+    import scipy.io as sio
+
+    bad = []
+    files_a, files_b = _tree(root_a), _tree(root_b)
+    if files_a != files_b:
+        bad.append("file lists differ: "
+                   f"{sorted(set(files_a) ^ set(files_b))[:8]}")
+    files = sorted(set(files_a) & set(files_b))
+    worst = dict(smpl=0.0, meta_units=0, jpg_share=0.0, mask_share=0.0,
+                 mat_pose=0.0, mat_joints3d=0.0, mat_joints2d=0.0,
+                 segm_share=0.0, pseudo_joints=0.0, pseudo_image_share=0.0,
+                 pseudo_moved=0, pseudo_moved_xy=0.0,
+                 pseudo_moved_mask_share=0.0)
+
+    def note(key, value, bound_key, what):
+        worst[key] = max(worst[key], value)
+        if value > CAMPAIGN_BOUNDS[bound_key]:
+            bad.append(f"{what}: {key} {value} > "
+                       f"{CAMPAIGN_BOUNDS[bound_key]}")
+
+    for rel in files:
+        a, b = os.path.join(root_a, rel), os.path.join(root_b, rel)
+        top = rel.split(os.sep)[0]
+        if top == "smpl_models":
+            if rel.endswith(".npz"):
+                with np.load(a) as x, np.load(b) as y:
+                    same = sorted(x.files) == sorted(y.files) and all(
+                        x[k].dtype == y[k].dtype
+                        and np.array_equal(x[k], y[k]) for k in x.files)
+            else:
+                x, y = np.load(a), np.load(b)
+                same = x.dtype == y.dtype and np.array_equal(x, y)
+            if not same:
+                worst["smpl"] = 1.0
+                bad.append(f"{rel}: SMPL arrays differ")
+        elif rel.endswith("matlab_meta.txt"):
+            units, other = _meta_units(a, b)
+            note("meta_units", units, "meta_units", rel)
+            if other:
+                bad.append(f"{rel}: lines differ: {other[:2]}")
+        elif top == "hm36" and rel.endswith(".jpg"):
+            note("jpg_share", _pixel_share(a, b), "jpg_share", rel)
+        elif top == "sam_masks":
+            note("mask_share", _pixel_share(a, b), "mask_share", rel)
+        elif rel.endswith("_info.mat"):
+            x, y = sio.loadmat(a), sio.loadmat(b)
+            for key in ("zrot", "camLoc", "gender", "shape"):
+                if not np.array_equal(x[key], y[key]):
+                    bad.append(f"{rel}: {key} differs")
+            for key, name in (("pose", "mat_pose"),
+                              ("joints3D", "mat_joints3d"),
+                              ("joints2D", "mat_joints2d")):
+                note(name, float(np.abs(x[key].astype(np.float64)
+                                        - y[key]).max()), name, rel)
+        elif rel.endswith("_segm.mat"):
+            x, y = sio.loadmat(a), sio.loadmat(b)
+            keys = sorted(k for k in x if k.startswith("segm_"))
+            if keys != sorted(k for k in y if k.startswith("segm_")):
+                bad.append(f"{rel}: frames differ")
+            for k in keys:
+                note("segm_share", float((x[k] != y[k]).mean()),
+                     "mask_share", f"{rel}:{k}")
+    pseudo = [os.path.join("surreal_h36m_pose", "info.npy")]
+    if pseudo[0] in files:
+        ia = np.load(os.path.join(root_a, pseudo[0]))
+        ib = np.load(os.path.join(root_b, pseudo[0]))
+        if not np.array_equal(ia, ib):
+            bad.append(f"pseudo info.npy differs: {ia} != {ib}")
+        worst["pseudo_moved"] = sum(
+            _pseudo_frame(root_a, root_b, int(idx), note)
+            for idx in ia)
+    return worst, bad
+
+
+def _pseudo_frame(root_a, root_b, idx, note) -> bool:
+    """One swept pseudo frame of two renders: the same crop (joints within
+    bounds, images and masks nearly equal) or a crop moved by one pixel
+    (returns True)."""
+    pa = os.path.join(root_a, "surreal_h36m_pose")
+    pb = os.path.join(root_b, "surreal_h36m_pose")
+    rel = f"joints/joint_{idx:06d}.npy"
+    ja, jb = np.load(os.path.join(pa, rel)), np.load(os.path.join(pb, rel))
+    xy = float(np.abs(ja[:, :2] - jb[:, :2]).max())
+    z = float(np.abs(ja[:, 2] - jb[:, 2]).max())
+    note("pseudo_joints", z, "pseudo_joints", rel)
+    image = [os.path.join(p, f"image/image_{idx:06d}.png") for p in (pa, pb)]
+    mask = [os.path.join(p, f"mask/mask_{idx:06d}.png") for p in (pa, pb)]
+    if xy <= CAMPAIGN_BOUNDS["pseudo_joints"]:
+        note("pseudo_joints", xy, "pseudo_joints", rel)
+        note("pseudo_image_share", _pixel_share(*image),
+             "pseudo_image_share", image[0])
+        note("mask_share", _pixel_share(*mask), "mask_share", mask[0])
+        return False
+    note("pseudo_moved_xy", xy, "pseudo_moved_xy", rel)
+    note("pseudo_moved_mask_share", _pixel_share(*mask),
+         "pseudo_moved_mask_share", mask[0])
+    return True
+
+
+def manifest_counts(manifest: dict) -> dict:
+    """A campaign manifest's counts without its digests: frames and masks
+    per hm36 camera folder, and the pseudo stream's frames, masks and
+    joint files."""
+    data = manifest["data"]
+    pseudo = data.get("pseudo", {})
+    return dict(
+        hm36={k: (v["frames"], v["masks"]) for k, v in data["hm36"].items()},
+        pseudo=tuple(pseudo.get(k) for k in ("frames", "masks",
+                                             "joint_files")))
+
+
+def manifest_agreement(ref: dict, got: dict) -> dict:
+    """How far a manifest agrees with a reference one: equal counts, and
+    how many of the reference's digests (per folder the meta file and the
+    first and last image and mask; the pseudo joints and index) are equal."""
+    rc, gc = manifest_counts(ref), manifest_counts(got)
+    agree = total = 0
+    for section in ("hm36", "pseudo"):
+        entries = ref["data"][section]
+        if section == "pseudo":
+            entries = {"pseudo": entries}
+        for name, entry in entries.items():
+            other = (got["data"].get(section, {}) if section == "pseudo"
+                     else got["data"][section].get(name, {}))
+            for key, value in entry.items():
+                if key.endswith("_md5"):
+                    total += 1
+                    agree += other.get(key) == value
+    return dict(folders=len(rc["hm36"]), got_folders=len(gc["hm36"]),
+                counts_equal=rc == gc, pseudo=rc["pseudo"],
+                got_pseudo=gc["pseudo"], digests=total,
+                digests_equal=agree)
