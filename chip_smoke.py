@@ -6,7 +6,8 @@ serving path once, takes a few steps of the flagship fused GAN training
 step, and trains, checkpoints and evaluates the flagship config through the
 port's train and eval CLIs, on the synthetic fixture and on a dataset read
 from disk; renders the self-rendered campaign with the port's offline tools
-and runs S1 -> eval -> S2 -> eval on it.
+and runs S1 -> eval -> S2 -> eval on it; and starts and keeps a run
+through the launch scripts (scripts/torch/).
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -246,6 +247,36 @@ Phases, each of which fails the run (nonzero exit, no result line):
    through the train CLI with ``--finetune --checkpoint`` of S1's
    checkpoint, one epoch, the same counts, scored the same way.
 
+16. launch, last: the port started and kept running through
+   scripts/torch/, the scripts run as a user runs them, with a ``python``
+   first on PATH that runs this file's ``launch-child`` wrapper (it runs
+   ``-m <module>`` as python does and writes each port process's launch
+   counts at exit). (a) ``launch_train.sh local 1`` on the flagship config
+   (ResNet-50, 256^2, D = 64, 3 hypotheses, 4 x 32, bf16, synthetic, seed
+   0) for 2 epochs of 4 steps with a checkpoint each: one run directory,
+   the launches per step of phase 6, the event file's writes polled (its
+   longest silence, from the start); ``launch_eval.sh`` on the last
+   checkpoint: phase 8's launches per batch, eval_result.txt finite. (b)
+   ``launch_train.sh local 2``: torchrun's two ranks on the one card over
+   gloo, phase 13's 4 x 16 fp32, one epoch (4 steps: the synthetic
+   fixture's 64 samples), the launches per step on each rank, one run
+   directory, one save announced and rank 0's step lines only. (c)
+   ``train_resumable.sh`` on (a)'s config with XAS_GRACE_SECS=0 and
+   XAS_STALL_SECS (a)'s longest silence plus 10 s,
+   its trainer stopped (SIGSTOP) once 00000_ckpt/state.pt exists: the
+   driver kills it and its processes and the second attempt resumes
+   00000_ckpt. The epoch after 00000_ckpt is replayed twice in this
+   process as the CLI runs it (a fresh process's backend flags); the
+   resumed run's final state is bitwise equal to a replay's where the two
+   replays are, else (the card's training is not bit-reproducible) its
+   weights' RMS and largest difference in learning rates, the share more
+   than 0.1 lr apart and the other tensors' relative L2 difference are
+   each within twice the two replays'; its first step's losses within
+   1e-2 of the replay's (relative, plus 1e-4). The seconds from the stop
+   to the kill and from the kill to the resumed first step, the restore's
+   ms (00000_ckpt into a fresh state on the card), and the distance from
+   (a)'s final state, which parted from this run's from step 0.
+
 ``python3 chip_smoke.py xl-render [OUT]`` renders the XL campaign
 (scripts/render_campaign_xl.sh's arguments) with the port on the card
 instead, and compares its manifest with the JAX package's
@@ -255,8 +286,10 @@ Earlier lines carry the findings as JSON; the line before the last lists the
 kernels (launches per training step, per serving forward, per eval batch,
 per step on the per-camera path, per mono step, per eval2d batch, per step
 of the train CLI under torchrun: ``dp_launches``, per step of each rank
-of the tensor-parallel train CLI: ``tp_launches``, and per S1 step, S2 step
-and eval batch of the campaign: ``campaign_launches``), and
+of the tensor-parallel train CLI: ``tp_launches``, per S1 step, S2 step
+and eval batch of the campaign: ``campaign_launches``, and per step and
+eval batch of the launched CLIs and per step of each launched rank:
+``launch_launches``), and
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -444,6 +477,11 @@ TP_PATH_LAUNCHES = {
     "conv3x3": {"launches_tc": 10, "launches_cuda_core": 8},
 }
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 16: the launch scripts; (c)'s run: epochs of the flagship's 4 steps,
+# the driver's poll
+LAUNCH_SCRIPTS = os.path.join(REPO_ROOT, "scripts", "torch")
+RESUMABLE_EPOCHS = 2
+RESUMABLE_POLL_S = 1
 
 KERNELS = {
     "integral_marginals": dict(
@@ -4173,6 +4211,519 @@ def phase_tp(card: str, root: str) -> dict:
     return record
 
 
+# ------------------------------------------------------------ phase 16
+
+
+def _counts_record(module: str) -> dict:
+    """This process's kernel launches, by kernel and by path."""
+    counters = _counters()
+    return dict(
+        pid=os.getpid(), module=module,
+        rank=int(os.environ.get("RANK", "0")),
+        launches={name: fn.launches for name, fn in counters.items()},
+        path_launches={name: {a: getattr(counters[name], a) for a in attrs}
+                       for name, attrs in TRAIN_PATH_LAUNCHES.items()})
+
+
+def launch_child_main(argv: list) -> int:
+    """``chip_smoke.py launch-child -m <module> <args>``: the interpreter
+    that phase 16's scripts run as ``python`` (a wrapper first on PATH).
+    It runs the module as ``python -m`` does; a module of the port writes
+    its process's launch counts to ``$XAS_SMOKE_COUNTS.<pid>`` at exit.
+    Anything else is handed to the interpreter unchanged."""
+    import atexit
+    import runpy
+
+    if argv[:1] != ["-m"] or len(argv) < 2:
+        os.execv(sys.executable, [sys.executable, *argv])
+    module, args = argv[1], argv[2:]
+    out = os.environ.get("XAS_SMOKE_COUNTS")
+    if out and module.startswith("x_as_supervision_tpu_torch."):
+        def dump():
+            with open(f"{out}.{os.getpid()}", "w") as f:
+                json.dump(_counts_record(module), f)
+
+        atexit.register(dump)
+    sys.argv = [module, *args]
+    # as python -m: the working directory first on the path
+    sys.path[0] = os.getcwd()
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    return 0
+
+
+def _launch_env(root: str, **extra) -> dict:
+    """The scripts' environment: `python` first on PATH is this file's
+    launch-child wrapper of this interpreter; counts go to <root>/counts."""
+    bin_dir = os.path.join(root, "bin")
+    os.makedirs(bin_dir, exist_ok=True)
+    wrapper = os.path.join(bin_dir, "python")
+    with open(wrapper, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" '
+                f'"{os.path.abspath(__file__)}" launch-child "$@"\n')
+    os.chmod(wrapper, 0o755)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XAS_")}
+    env.update(PATH=f"{bin_dir}:{os.environ.get('PATH', '')}",
+               PYTHONUNBUFFERED="1",
+               XAS_SMOKE_COUNTS=os.path.join(root, "counts"), **extra)
+    return env
+
+
+def _launch_counts(root: str) -> list[dict]:
+    """The launch counts the scripts' processes wrote (then removed), by
+    rank."""
+    import glob
+
+    records = []
+    for path in glob.glob(os.path.join(root, "counts.*")):
+        with open(path) as f:
+            records.append(json.load(f))
+        os.remove(path)
+    return sorted(records, key=lambda r: r["rank"])
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class _Watch:
+    """A script run in a session of its own, its output lines kept with
+    the time each arrived, and the write times of the newest event file
+    under `log_dir` polled meanwhile."""
+
+    def __init__(self, args: list, env: dict, cwd: str, log_dir: str):
+        import threading
+
+        self.lines: list = []
+        self.writes: set = set()
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            ["bash", *args], env=env, cwd=cwd, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        self._log_dir = log_dir
+        self.name = os.path.basename(args[0])
+        self._threads = [threading.Thread(target=self._read, daemon=True),
+                         threading.Thread(target=self._poll, daemon=True)]
+        for t in self._threads:
+            t.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append((time.time(), line.rstrip("\n")))
+
+    def _poll(self) -> None:
+        from x_as_supervision_tpu_torch.tools.train_resumable import (
+            newest_events)
+
+        while self.proc.poll() is None:
+            ev = newest_events(self._log_dir)
+            if ev is not None:
+                try:
+                    self.writes.add(os.path.getmtime(ev))
+                except OSError:
+                    pass
+            time.sleep(0.02)
+
+    def wait(self, timeout: float) -> float:
+        from x_as_supervision_tpu_torch.tools.train_resumable import (
+            kill_tree)
+
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            kill_tree(self.proc)
+            check(False, f"{self.name}: running after {timeout} s: "
+                         f"{self.text()[-3000:]}")
+        end = time.time()
+        for t in self._threads:
+            t.join(timeout=10)
+        check(self.proc.returncode == 0,
+              f"{self.name} exited {self.proc.returncode}: "
+              f"{self.text()[-3000:]}")
+        return end
+
+    def text(self) -> str:
+        return "\n".join(line for _, line in self.lines)
+
+    def first(self, prefix: str, after: float = 0.0):
+        return next(((t, line) for t, line in self.lines
+                     if line.startswith(prefix) and t >= after), (None, None))
+
+
+def _max_gap(start: float, writes: set, end: float) -> float:
+    times = [start] + sorted(w for w in writes if start <= w <= end) + [end]
+    return max(b - a for a, b in zip(times, times[1:]))
+
+
+def _run_dir(log_dir: str, config_name: str) -> str:
+    runs = os.listdir(log_dir)
+    check(len(runs) == 1, f"{log_dir}: run directories {runs}")
+    run = os.path.join(log_dir, runs[0])
+    check(sorted(os.listdir(run))[-2:] == [config_name, "tensorboard"],
+          f"{run} holds {os.listdir(run)}")
+    return run
+
+
+def _launch_plain(root: str) -> dict:
+    """(a) launch_train.sh local 1 on the flagship config for the epochs of
+    (c), its event file's writes watched, then launch_eval.sh on its last
+    checkpoint."""
+    import re
+
+    from x_as_supervision_tpu_torch.checks import result_lines
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+
+    cfg = flagship_config()
+    cfg["train_params"].update(num_epochs=RESUMABLE_EPOCHS,
+                               checkpoint_freq=1)
+    cfg_path = os.path.join(root, "flagship_launch.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    log = os.path.join(root, "log_plain")
+    env = _launch_env(root, XAS_COORD_PORT=str(_free_port()),
+                      XAS_EXTRA_ARGS=f"--synthetic --seed {SEED} "
+                                     f"--log_dir {log}")
+    run = _Watch([os.path.join(LAUNCH_SCRIPTS, "launch_train.sh"), "local",
+                  "1", cfg_path], env, root, log)
+    end = run.wait(timeout=600)
+    out = run.text()
+    # its longest time without a write to the event file, from the start
+    healthy_gap = _max_gap(run.t0, run.writes, end)
+    (rec,) = _launch_counts(root)
+    check(rec["module"] == "x_as_supervision_tpu_torch.train",
+          f"launch_train: ran {rec['module']}")
+    steps = RESUMABLE_EPOCHS * TRAIN_IMAGES // TRAIN_BATCH
+    per_step = {k: v / steps for k, v in rec["launches"].items()}
+    check(per_step == {k: float(v) for k, v in TRAIN_LAUNCHES.items()},
+          f"launch_train: launches per step {per_step}")
+    paths = {k: {a: v / steps for a, v in d.items()}
+             for k, d in rec["path_launches"].items()}
+    check(paths == {k: {a: float(v) for a, v in d.items()}
+                    for k, d in TRAIN_PATH_LAUNCHES.items()},
+          f"launch_train: launches by path per step {paths}")
+    run_dir = _run_dir(log, "flagship_launch.json")
+    last = os.path.join(run_dir, f"{RESUMABLE_EPOCHS - 1:05d}_ckpt")
+    check(os.path.isfile(os.path.join(last, "state.pt")),
+          f"launch_train: no {last}/state.pt")
+    step_lines = len(re.findall(r"^step \d+ ", out, re.M))
+    check(out.count("checkpoint saved:") == RESUMABLE_EPOCHS
+          and step_lines == steps, f"launch_train: output {out[-2000:]}")
+    logs = os.listdir(os.path.join(root, "launch_output"))
+    check(len(logs) == 1, f"launch_train: launch_output holds {logs}")
+
+    ev = _Watch([os.path.join(LAUNCH_SCRIPTS, "launch_eval.sh"), "local",
+                 "1", cfg_path, last, "best"],
+                _launch_env(root, XAS_EXTRA_ARGS="--synthetic"), root, log)
+    eval_s = ev.wait(timeout=600) - ev.t0
+    (erec,) = _launch_counts(root)
+    nb = TRAIN_IMAGES // TRAIN_BATCH
+    per_batch = {k: v / nb for k, v in erec["launches"].items()}
+    check(erec["module"] == "x_as_supervision_tpu_torch.eval"
+          and per_batch == {k: float(v) for k, v in EVAL_LAUNCHES.items()}
+          and erec["path_launches"]["conv_bn_link"]["launches_wgmma"]
+          == EVAL_LAUNCHES["conv_bn_link"] * nb,
+          f"launch_eval: {erec}")
+    lines = result_lines(os.path.join(run_dir, "eval", "eval_result.txt"))
+    check(len(lines) == 15 and all(
+        v is None or np.isfinite(v) for _, v in lines),
+        f"launch_eval: eval_result.txt {lines}")
+    return dict(train_script_s=end - run.t0, steps=steps,
+                healthy_gap_s=healthy_gap, event_writes=len(run.writes),
+                eval_script_s=eval_s, launches_per_step=per_step,
+                path_launches_per_step=paths,
+                eval_launches_per_batch=per_batch,
+                eval_result=[f"{k}: {v}" if v is not None else k
+                             for k, v in lines],
+                config=cfg_path, last_checkpoint=last)
+
+
+def _launch_pair(root: str) -> dict:
+    """(b) launch_train.sh local 2: two ranks on the one card over gloo."""
+    import re
+
+    cfg = _dp_pair_config()
+    cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
+    cfg_path = os.path.join(root, "flagship_pair.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    log = os.path.join(root, "log_pair")
+    env = _launch_env(root, XAS_COORD_PORT=str(_free_port()),
+                      XAS_EXTRA_ARGS=f"--synthetic --seed {SEED} --fp32 "
+                                     f"--log_dir {log}")
+    run = _Watch([os.path.join(LAUNCH_SCRIPTS, "launch_train.sh"), "local",
+                  "2", cfg_path], env, root, log)
+    wall_s = run.wait(timeout=600) - run.t0
+    out = run.text()
+    records = _launch_counts(root)
+    check([r["rank"] for r in records] == [0, 1],
+          f"launch pair: counts of ranks {[r['rank'] for r in records]}")
+    # the synthetic fixture's 64 samples at the global batch of 16
+    steps = 64 // DP_PAIR_BATCH
+    for r in records:
+        per_step = {k: v / steps for k, v in r["launches"].items()}
+        check(per_step == {k: float(v) for k, v in TRAIN_LAUNCHES.items()},
+              f"launch pair: rank {r['rank']} launches per step {per_step}")
+    run = _run_dir(log, "flagship_pair.json")
+    check(os.path.isfile(os.path.join(run, "00000_ckpt", "state.pt")),
+          "launch pair: no checkpoint")
+    saves = out.count("checkpoint saved:")
+    step_lines = len(re.findall(r"^step \d+ ", out, re.M))
+    check(saves == 1 and step_lines == steps,
+          f"launch pair: {saves} saves and {step_lines} step lines "
+          f"announced: {out[-2000:]}")
+    check(out.count("Running command: python -m "
+                    "x_as_supervision_tpu_torch.train") == 2,
+          "launch pair: train.sh did not run once a rank")
+    return dict(wall_s=wall_s, steps=steps, saves_announced=saves,
+                step_lines=step_lines,
+                launches_per_step=[{k: v / steps for k, v in
+                                    r["launches"].items()} for r in records],
+                path_launches_per_step=[
+                    {k: {a: v / steps for a, v in d.items()}
+                     for k, d in r["path_launches"].items()}
+                    for r in records])
+
+
+def _launch_resumable(root: str, plain: dict) -> dict:
+    """(c) train_resumable.sh on (a)'s config, its trainer stopped
+    (SIGSTOP) once 00000_ckpt is saved; the run's final state against the
+    epoch after 00000_ckpt replayed twice in this process: bitwise where
+    the two replays are, else within twice their distance."""
+    import glob
+    import math
+    import signal
+
+    import torch
+
+    from x_as_supervision_tpu_torch.checks import flat
+    from x_as_supervision_tpu_torch.tools.train_resumable import _alive
+    from x_as_supervision_tpu_torch.train import checkpoint as ckpt
+
+    with open(plain["config"]) as f:
+        cfg = json.load(f)
+    steps = plain["steps"]
+    # the stall window above (a)'s longest silence (its start-up), with
+    # room for a slower start
+    healthy_gap = plain["healthy_gap_s"]
+    stall = math.ceil(healthy_gap + 10)
+    log_b = os.path.join(root, "log_broken")
+    run = _Watch([os.path.join(LAUNCH_SCRIPTS, "train_resumable.sh"),
+                  plain["config"], log_b, "--poll", str(RESUMABLE_POLL_S),
+                  "--synthetic", "--seed", str(SEED)],
+                 _launch_env(root, XAS_GRACE_SECS="0",
+                             XAS_STALL_SECS=str(stall)), root, log_b)
+    deadline = time.time() + 600
+    pid = t_stop = None
+    while time.time() < deadline and run.proc.poll() is None:
+        _, line = run.first("[resumable] attempt 1:")
+        if pid is None and line is not None:
+            pid = int(line.rsplit("(pid ", 1)[1].rstrip(")"))
+        if pid is not None and glob.glob(
+                os.path.join(log_b, "*", "00000_ckpt", "state.pt")):
+            os.kill(pid, signal.SIGSTOP)
+            t_stop = time.time()
+            break
+        time.sleep(0.02)
+    check(t_stop is not None and run.proc.poll() is None,
+          f"broken run: no trainer to stop: {run.text()[-2000:]}")
+    end = run.wait(timeout=stall + 600)
+    _launch_counts(root)
+    text = run.text()
+    t_kill, kill_line = run.first("[resumable] no TB write for")
+    t_attempt, attempt_line = run.first("[resumable] attempt 2:")
+    t_step, _ = run.first("step ", after=t_attempt or end)
+    check(kill_line is not None and f"killing hung pid {pid}" in kill_line
+          and attempt_line is not None and t_step is not None
+          and text.count("[resumable] attempt") == 2
+          and "[resumable] finished after 2 attempt(s)" in text,
+          f"broken run: {text[-3000:]}")
+    (run_b,) = glob.glob(os.path.join(log_b, "*", ""))
+    check(attempt_line.startswith(
+        f"[resumable] attempt 2: resuming from {run_b}00000_ckpt"),
+        f"broken run resumed as: {attempt_line}")
+    check(not _alive(pid), f"the stopped trainer {pid} is still there")
+
+    # the restore the resumed attempt made, timed here on the card
+    path0 = os.path.join(run_b, "00000_ckpt")
+    _, fresh = _gan(cfg, torch.bfloat16, "cuda", SEED + 7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.restore_resume(path0, fresh)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    del fresh
+    torch.cuda.empty_cache()
+
+    # the epoch after 00000_ckpt replayed twice here: where the card's
+    # training is not bit-reproducible (the decode's atomic sums, cuDNN's
+    # backward), the two replays part, and the resumed run must stay as
+    # close to one as the other is
+    got = flat(ckpt.load_raw(os.path.join(run_b, os.path.basename(
+        plain["last_checkpoint"]))))
+    check(got["/step"] == steps and got["/epoch"] == RESUMABLE_EPOCHS,
+          f"broken run's final counts {got['/step']}, {got['/epoch']}")
+    replay, replay_losses = _replay_epoch(cfg, path0)
+    again, _ = _replay_epoch(cfg, path0)
+    lr = float(cfg["train_params"]["lr_kp_detector"])
+    floor = _state_distance(again, replay, lr)
+    resumed = _state_distance(got, replay, lr)
+    del again
+    if floor["bitwise_equal"]:
+        check(resumed["bitwise_equal"],
+              f"resumed run: final state differs from the replay's where "
+              f"two replays agree bitwise: {resumed}")
+    else:
+        for key in ("weight_rms_lr", "weight_max_lr",
+                    "weight_over_tenth_lr", "other_rel_l2"):
+            check(resumed[key] <= 2 * floor[key],
+                  f"resumed run: {key} {resumed[key]} from the replay, above "
+                  f"twice two replays' {floor[key]}")
+    # its first step's losses: the card's rounding of the keypoints moves
+    # pixels of the rendered masks, which moves the mask-fed losses by up
+    # to 8e-4 relative (measured); a resume from the wrong batch, seed,
+    # epoch or weights moves them by far more
+    first = _step_losses(text, steps // RESUMABLE_EPOCHS, after=attempt_line)
+    errs = {k: abs(first[k] - v) / (abs(v) + 1e-4)
+            for k, v in replay_losses.items()}
+    check(first.keys() == replay_losses.keys() and max(errs.values()) <= 1e-2,
+          f"resumed first step {first} against its replay {replay_losses}")
+    # beside (a)'s unbroken run, which parted from this one from step 0
+    sibling = _state_distance(got, flat(ckpt.load_raw(
+        plain["last_checkpoint"])), lr)
+    del replay, got
+    torch.cuda.empty_cache()
+    return dict(stall_secs=stall, healthy_gap_s=healthy_gap, attempts=2,
+                stop_to_kill_s=t_kill - t_stop,
+                kill_to_attempt_s=t_attempt - t_kill,
+                kill_to_resumed_step_s=t_step - t_kill,
+                restore_ms=restore_ms,
+                checkpoint_mb=os.path.getsize(os.path.join(
+                    path0, ckpt.STATE_FILE)) / 1e6,
+                resumed_vs_replay=resumed, replay_vs_replay=floor,
+                resumed_vs_unbroken_run=sibling,
+                first_step_losses=first, replayed_first_step=replay_losses,
+                first_step_max_rel_err=max(errs.values()))
+
+
+def _step_losses(text: str, step: int, after: str = "") -> dict:
+    """The losses a train CLI printed for `step` (its line after the line
+    `after`)."""
+    import re
+
+    text = text[text.index(after):] if after else text
+    line = re.search(rf"^step {step} \(.*$", text, re.M)
+    check(line is not None, f"no line of step {step}: {text[-2000:]}")
+    return {k: float(v) for k, v in
+            re.findall(r"(\S+)=(-?[0-9.]+(?:e[-+]?[0-9]+)?)", line.group())}
+
+
+def _replay_epoch(cfg: dict, path: str) -> tuple[dict, dict]:
+    """The train CLI's epochs after the checkpoint at `path`, resumed in
+    this process as the CLI builds them (seed, synthetic fixture, bf16, 10
+    loader threads): the final state, flat, and the first step's losses."""
+    import torch
+
+    from x_as_supervision_tpu_torch.checks import flat
+    from x_as_supervision_tpu_torch.data.factory import build_dataset
+    from x_as_supervision_tpu_torch.train import checkpoint as ckpt
+    from x_as_supervision_tpu_torch.train.__main__ import setup_seed
+    from x_as_supervision_tpu_torch.train.trainer import Trainer
+
+    # the backend's flags as a fresh process (the CLI) has them; earlier
+    # phases turn TF32 and cuDNN's deterministic algorithms on and off
+    flags = [(torch.backends.cudnn, "allow_tf32", True),
+             (torch.backends.cuda.matmul, "allow_tf32", False),
+             (torch.backends.cudnn, "deterministic", False),
+             (torch.backends.cudnn, "benchmark", False)]
+    saved = [getattr(obj, name) for obj, name, _ in flags]
+    try:
+        for obj, name, value in flags:
+            setattr(obj, name, value)
+        setup_seed(SEED)
+        trainer = Trainer(cfg, build_dataset(cfg, True), seed=SEED,
+                          dtype=torch.bfloat16, checkpoint_path=path)
+        history = trainer.train(log=lambda *_: None)
+        torch.cuda.synchronize()
+    finally:
+        for (obj, name, _), value in zip(flags, saved):
+            setattr(obj, name, value)
+    state = {k: v.detach().cpu() if torch.is_tensor(v) else v
+             for k, v in flat(ckpt.state_dict(trainer.state)).items()}
+    del trainer
+    torch.cuda.empty_cache()
+    return state, history[0]
+
+
+def _state_distance(got: dict, want: dict, lr: float) -> dict:
+    """How far two flat train states are: the same keys, shapes, dtypes and
+    counts; over the module weights the RMS and largest difference in
+    learning rates and the share more than 0.1 lr apart; over the other
+    tensors (running statistics, Adam moments, the carried gradient) the
+    L2 norm of the difference relative to theirs, and the largest
+    difference relative to its tensor's largest entry (a tensor of
+    near-zero entries makes that one large: reported, not held)."""
+    import torch
+
+    from x_as_supervision_tpu_torch.checks import bitwise_diffs
+
+    bad = bitwise_diffs(got, want)
+    check(got.keys() == want.keys(), "the two states hold other entries")
+    sq = n = over = o_sq = o_norm = 0
+    w_max = o_max = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if not torch.is_tensor(w):
+            check(g == w, f"{k}: {g} against {w}")
+            continue
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{k}: layout")
+        if not w.is_floating_point():
+            check(torch.equal(g, w), f"{k} differs")
+            continue
+        d = (g.double() - w.double()).abs()
+        if k.startswith(("/detector/", "/physique/", "/discriminator/")) \
+                and "running" not in k:
+            d = d / lr
+            sq += float((d * d).sum())
+            n += d.numel()
+            over += int((d > 0.1).sum())
+            w_max = max(w_max, float(d.max()))
+        elif d.numel():
+            o_sq += float((d * d).sum())
+            o_norm += float((w.double() ** 2).sum())
+            o_max = max(o_max, float(d.max())
+                        / max(float(w.double().abs().max()), 1e-30))
+    return dict(bitwise_equal=not bad, tensors_differing=len(bad),
+                weight_rms_lr=(sq / max(n, 1)) ** 0.5, weight_max_lr=w_max,
+                weight_over_tenth_lr=over / max(n, 1),
+                other_rel_l2=(o_sq / max(o_norm, 1e-300)) ** 0.5,
+                other_max_rel=o_max,
+                first_differing=bad[:5])
+
+
+def phase_launch(card: str) -> dict:
+    """Phase 16 (see the module docstring): the port started and kept
+    running through scripts/torch/."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        plain = _launch_plain(root)
+        emit(phase="launch_plain", card=card, **plain)
+        pair = _launch_pair(root)
+        emit(phase="launch_pair", card=card, **pair)
+        resumable = _launch_resumable(root, plain)
+        emit(phase="launch_resumable", card=card, **resumable)
+    record = dict(phase="launch", card=card,
+                  seconds=time.perf_counter() - t0, plain=plain, pair=pair,
+                  resumable=resumable)
+    emit(phase="launch_summary", card=card, seconds=record["seconds"])
+    return record
+
+
+
 def dp_rank_main(argv: list) -> int:
     """The rank processes of phase_dp and phase_tp: ``dp-rank
     train|eval|tp_train <out> <CLI args>`` and ``dp-rank cost|tp_cost
@@ -4243,6 +4794,8 @@ def main() -> int:
         return dp_rank_main(sys.argv[2:])
     if len(sys.argv) > 1 and sys.argv[1] == "xl-render":
         return xl_render_main(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "launch-child":
+        return launch_child_main(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -4271,6 +4824,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as root:
             dp = phase_dp(device["nvidia_smi"], root)
             tp = phase_tp(device["nvidia_smi"], root)
+        launch = phase_launch(device["nvidia_smi"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4328,6 +4882,11 @@ def main() -> int:
                 s1_step=campaign["s1"]["launches_per_step"][name],
                 s2_step=campaign["s2"]["launches_per_step"][name],
                 eval_batch=campaign["s1_eval"]["launches_per_batch"][name]),
+            launch_launches=dict(
+                train_step=launch["plain"]["launches_per_step"][name],
+                eval_batch=launch["plain"]["eval_launches_per_batch"][name],
+                pair_step=[r[name] for r in
+                           launch["pair"]["launches_per_step"]]),
             mono_shape=mcase["shape"], mono_max_abs_err=mcase["max_abs_err"],
             mono_ms=mcase["ms"], mono_plain_ms=mcase["plain_ms"],
             mono_bound_ms=mcase["bound_ms"],

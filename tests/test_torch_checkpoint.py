@@ -181,8 +181,12 @@ def test_latest_and_auto_pick_the_newest(tmp_path):
                         ("cfg_seed0_02_01_26_00.00.00", (0, 2, 10))):
         for e in epochs:
             os.makedirs(log / run / f"{e:05d}_ckpt")
-    os.makedirs(log / "cfg_seed0_02_01_26_00.00.00" / "00003_other")
+            (log / run / f"{e:05d}_ckpt" / ckpt.STATE_FILE).write_bytes(b"")
     newest = log / "cfg_seed0_02_01_26_00.00.00"
+    os.makedirs(newest / "00003_other")
+    # a save cut short: the directory is there, the file is not yet
+    os.makedirs(newest / "00011_ckpt")
+    (newest / "00011_ckpt" / (ckpt.STATE_FILE + ".tmp")).write_bytes(b"")
     assert ckpt.latest_checkpoint(str(newest)) == str(newest / "00010_ckpt")
     assert ckpt.latest_checkpoint(str(tmp_path / "none")) is None
     assert auto_checkpoint(str(log), str(cfg)) == str(newest / "00010_ckpt")
@@ -320,4 +324,7 @@ def test_port_and_chip_smoke_import_no_jax():
                                                "x_as_supervision_tpu"):
                 bad.append(f"{f}:{i}: {line.strip()}")
     assert len(files) > 30
+    for module in ("convert.py", os.path.join("tools", "train_resumable.py")):
+        assert os.path.join(REPO, "x_as_supervision_tpu_torch",
+                            module) in files
     assert not bad, bad

@@ -8,7 +8,7 @@ first 2 of them, by the same bounds.
 
 This process runs the JAX step and writes each step's JAX state before and
 after it and its batch as npz; the two ranks (tests/torch_dp.py, JAX-free)
-carry each step's JAX state in (checks.load_train_state, the JAX-free half
+carry each step's JAX state in (convert.load_train_state, the JAX-free half
 of tests/torch_parity.py:carry_train_state) and take the port's step on
 their halves of the global batch; the four tensor-parallel ranks cut it to
 their channel shards first, and rank 0 gathers the state after the step. Every loss, parameter, running statistic

@@ -330,7 +330,7 @@ def job_jax_steps(rank: int, world: int, workdir: str) -> dict:
     import torch
 
     from step_bounds import assert_step_matches
-    from x_as_supervision_tpu_torch.checks import load_train_state
+    from x_as_supervision_tpu_torch.convert import load_train_state
     from x_as_supervision_tpu_torch.train.factory import (
         build_gan_spec, flagship_config)
     from x_as_supervision_tpu_torch.train.state import TrainState, train_step

@@ -15,7 +15,11 @@ from x_as_supervision_tpu.tools.convert_torch_resnet import (
 )
 from x_as_supervision_tpu_torch import weights
 from step_bounds import assert_step_matches  # noqa: F401 (re-exported)
-from x_as_supervision_tpu_torch.checks import load_train_state
+from x_as_supervision_tpu_torch.convert import (
+    load_train_state,
+    module_arrays,
+    train_state_arrays_from_jax,
+)
 from x_as_supervision_tpu_torch.models.detector import (
     build_detector as torch_build,
 )
@@ -61,48 +65,37 @@ def conditioned_pair(det_params: dict, size: int, batch: int, seed: int):
     return jdet, {"params": params, "batch_stats": stats}, tdet, images
 
 
-def _gen_sd(det, det_stats, phys, phys_stats) -> dict:
-    sd = {"detector." + k: v for k, v in weights.state_dict_from_variables(
-        {"params": to_numpy_tree(det),
-         "batch_stats": to_numpy_tree(det_stats)}).items()}
-    sd.update({"physique." + k: v for k, v in weights.physique_state_dict(
-        {"params": to_numpy_tree(phys),
-         "batch_stats": to_numpy_tree(phys_stats)}).items()})
-    return sd
-
-
 def jax_state_in_port_names(js) -> dict:
     """A JAX TrainState's variables (parameters and BatchNorm statistics)
-    as a flat dict in the port's names (detector., physique.,
-    discriminator.)."""
-    sd = _gen_sd(js.det_params, js.det_stats, js.phys_params, js.phys_stats)
-    sd.update({"discriminator." + k: v for k, v in
-               weights.discriminator_state_dict(
-                   to_numpy_tree(js.disc_params)).items()})
-    return {k: v for k, v in sd.items() if "num_batches" not in k}
+    as a flat dict of arrays in the port's names (detector., physique.,
+    discriminator.): the port's convert.module_arrays."""
+    return module_arrays(*(to_numpy_tree(getattr(js, f)) for f in (
+        "det_params", "det_stats", "phys_params", "phys_stats",
+        "disc_params")))
+
+
+def raw_train_state(js) -> dict:
+    """A live JAX TrainState as the tree an Orbax restore without a target
+    returns: dicts keyed by its fields, each optimizer state a list (the
+    Adam state as a dict, then the schedule's)."""
+    def chain(opt):
+        adam = opt[0]
+        return [dict(count=adam.count, mu=adam.mu, nu=adam.nu),
+                dict(count=opt[1].count)]
+
+    return dict(det_params=js.det_params, det_stats=js.det_stats,
+                phys_params=js.phys_params, phys_stats=js.phys_stats,
+                disc_params=js.disc_params, opt_det=chain(js.opt_det),
+                opt_disc=chain(js.opt_disc),
+                pending_disc_grads=js.pending_disc_grads, step=js.step,
+                epoch=js.epoch)
 
 
 def train_state_arrays(js) -> dict:
     """A JAX TrainState as flat numpy arrays in the port's names, the
-    layout checks.load_train_state reads (an npz of it reaches a process
-    without JAX)."""
-    out = {"var/" + k: np.asarray(v)
-           for k, v in jax_state_in_port_names(js).items()}
-    det_adam, disc_adam = js.opt_det[0], js.opt_disc[0]
-    for tag, m in (("mu", det_adam.mu), ("nu", det_adam.nu)):
-        out.update({f"{tag}/det/{k}": np.asarray(v) for k, v in _gen_sd(
-            m["detector"], js.det_stats, m["physique"], js.phys_stats
-        ).items()})
-    for tag, m in (("mu", disc_adam.mu), ("nu", disc_adam.nu)):
-        out.update({f"{tag}/disc/{k}": np.asarray(v) for k, v in
-                    weights.discriminator_state_dict(
-                        to_numpy_tree(m)).items()})
-    out.update({"pending/" + k: np.asarray(v) for k, v in
-                weights.discriminator_state_dict(
-                    to_numpy_tree(js.pending_disc_grads)).items()})
-    out["count/det"] = np.asarray(int(det_adam.count))
-    out["count/disc"] = np.asarray(int(disc_adam.count))
-    return out
+    layout convert.load_train_state reads (an npz of it reaches a process
+    without JAX): the port's convert.train_state_arrays_from_jax."""
+    return train_state_arrays_from_jax(to_numpy_tree(raw_train_state(js)))
 
 
 def carry_train_state(pspec, state, js) -> None:

@@ -284,7 +284,7 @@ def job_tp_jax_steps(rank: int, world: int, workdir: str) -> dict:
     import torch
 
     from step_bounds import assert_step_matches
-    from x_as_supervision_tpu_torch.checks import load_train_state
+    from x_as_supervision_tpu_torch.convert import load_train_state
     from x_as_supervision_tpu_torch.parallel import mesh, tp
     from x_as_supervision_tpu_torch.train import checkpoint as ckpt
     from x_as_supervision_tpu_torch.train.factory import (

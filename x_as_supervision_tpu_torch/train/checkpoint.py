@@ -48,13 +48,16 @@ def ckpt_path(save_dir: str, epoch: int) -> str:
 
 
 def latest_checkpoint(save_dir: str) -> str | None:
-    """The checkpoint of the highest epoch in `save_dir`, or None."""
+    """The complete checkpoint of the highest epoch in `save_dir`, or None.
+    A ``{epoch:05d}_ckpt`` without ``state.pt`` is a save that was cut
+    short (its directory is made before the file is renamed into place) and
+    is passed over."""
     if not os.path.isdir(save_dir):
         return None
     found = []
     for name in os.listdir(save_dir):
         m = _CKPT_RE.match(name)
-        if m:
+        if m and os.path.isfile(os.path.join(save_dir, name, STATE_FILE)):
             found.append((int(m.group(1)), name))
     if not found:
         return None
