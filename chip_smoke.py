@@ -6,12 +6,21 @@ serving path once, takes a few steps of the flagship fused GAN training
 step, and trains, checkpoints and evaluates the flagship config through the
 port's train and eval CLIs, on the synthetic fixture and on a dataset read
 from disk; renders the self-rendered campaign with the port's offline tools
-and runs S1 -> eval -> S2 -> eval on it; and starts and keeps a run
-through the launch scripts (scripts/torch/).
+and runs S1 -> eval -> S2 -> eval on it; starts and keeps a run
+through the launch scripts (scripts/torch/); and takes the flagship step
+under each of the JAX package's five remat modes.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-Phases, each of which fails the run (nonzero exit, no result line):
+Phases, each of which fails the run (nonzero exit, no result line), in
+the order they run but for phase 17, which runs after phase 6. The
+launches per train step that a phase holds are
+x_as_supervision_tpu_torch/checks.py:train_launches of the config it
+drives, under that config's remat mode: the flagship config's is ``none``
+(``"remat": false``), and a shipped config, which sets no ``remat`` key,
+is ``full`` (the JAX package's default), where every detector forward
+runs again in the backward: decode 4 + 2 and link 28 a step where the
+flagship step has 2 + 2 and 14.
 
 1. versions, and the card's name and power limit from nvidia-smi;
 2. build: every csrc/*.cu with nvcc for sm_90a, all compilers started
@@ -103,8 +112,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    with each of the res_sage_gcn, res_gcn (use_bn) and simple_gcn
    discriminators: 1 warm-up and 2 timed steps each (CUDA events), peak
    memory, every loss finite, and the launches per step by kernel (counts
-   set to 0 just before the timed steps): decode 2 + 2, link 56 (one per
-   camera slice, all on wgmma), conv3x3 14 + 4. The link on each camera's
+   set to 0 just before the timed steps; the config remats in ``full``):
+   decode 4 + 2, link 112 (one per camera slice, all on wgmma, each
+   forward twice), conv3x3 14 + 4; the pooled control 4 + 2, link 28.
+   The link on each camera's
    slice of a (128, C, H, W) channels-last batch at 256@16^2 and 512@8^2,
    fp32 and bf16, against its plain version with the kernel phase's
    bounds, and a grouped Bottleneck (4 launches) against the plain grouped
@@ -142,7 +153,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    00000_ckpt: CUDA events around each step, images per second, peak
    memory, the loader's ms per batch and each step's wait on its queue,
    every loss finite, the launches per step (counts set to 0 just before
-   the CLI: those of phase 6). That checkpoint scored through
+   the CLI; the config remats in ``full``: decode 4 + 2, link 28, conv3x3
+   14 + 4). That checkpoint scored through
    ``python -m x_as_supervision_tpu_torch.eval2d`` with MPII_2D (2 batches
    of 32, bf16, through PoseEstimator): eval2d_result.txt with a PCKh in
    [0, 100], the launches per batch (decode 1, link 7, all on wgmma), the
@@ -239,8 +251,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    first manifest passes. (d) Campaign_SurS1 (its JSON copy, every path
    into the render, one epoch) through the train CLI without --synthetic:
    96 frames padded by a batch, 4 steps of 4 cameras x 32 at 256^2, bf16,
-   the launches per step of phase 6 (the config's physique widths are the
-   flagship's [32, 64, 128]: conv3x3 14 on tensor cores + 4 on CUDA cores),
+   the launches per step of ``full`` (decode 4 + 2, link 28; the config's
+   physique widths are the flagship's [32, 64, 128]: conv3x3 14 on tensor
+   cores + 4 on CUDA cores),
    CUDA events around each step and each batch's copy to the card, the
    loader's wait per step; its checkpoint scored by the eval CLI in best
    mode (2 batches, phase 8's launches per batch). (e) Campaign_SurS2
@@ -277,6 +290,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ms (00000_ckpt into a fresh state on the card), and the distance from
    (a)'s final state, which parted from this run's from step 0.
 
+17. remat, run after phase 6 and before phase 7: the JAX package's five
+   ``model_params.remat`` modes (models/composed.py). (a) The flagship step
+   of phase 6 (4 cameras x 32, bf16) under each of none, full, pseudo,
+   head_decode and decode: one warm-up and 3 timed steps (CUDA events),
+   peak memory over the mode (reset before its state is built) and over
+   the timed steps, and the launches per step (counts set to 0 just
+   before the timed steps) held to checks.train_launches: decode forward
+   2, 4, 3, 4, 4, decode backward 2, link 14, 28, 21, 14, 14 (all on
+   wgmma), conv3x3 14 + 4. (b) Phase 7's reduced fp32 config on the card
+   (TF32 off, cuDNN's deterministic algorithms, phase 7's conditioning,
+   dropout off), one fused step in each mode from the same weights and
+   batch against ``none``'s: losses within 1e-6 relative; the gradients
+   Adam took, the carried discriminator gradient, the parameters after
+   Adam and the running statistics bitwise or within twice the distance
+   of two ``none`` runs; num_batches_tracked equal. (c) full at 4 cameras x
+   64 (the batch remat exists for), one warm-up and one timed step: its
+   peak under the card's memory. (d) The flagship config written without
+   its remat key through the train CLI (--synthetic, one epoch of 4
+   steps): the launches per step of ``full``. (e) models/resnet.py's
+   AvgPoolHead at (32, 2048, 8, 8) -> 54, fp32 (TF32 off) and bf16, card
+   against CPU on the same weights (1e-5 and 1e-2 of the output's scale).
+
 ``python3 chip_smoke.py xl-render [OUT]`` renders the XL campaign
 (scripts/render_campaign_xl.sh's arguments) with the port on the card
 instead, and compares its manifest with the JAX package's
@@ -289,7 +324,8 @@ of the train CLI under torchrun: ``dp_launches``, per step of each rank
 of the tensor-parallel train CLI: ``tp_launches``, per S1 step, S2 step
 and eval batch of the campaign: ``campaign_launches``, and per step and
 eval batch of the launched CLIs and per step of each launched rank:
-``launch_launches``), and
+``launch_launches``, and per flagship step under each remat mode:
+``remat_launches``), and
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -333,18 +369,17 @@ CONV_SHAPES = (
     (64, 32, 256, 1), (32, 1, 256, 1),
     (64, 128, 128, 1), (32, 64, 256, 1),
 )
-# launches per training step: two detector forwards (cameras, pseudo
-# images), each one decode and seven links, each differentiated; the
-# physique net's 10 convs and the input gradients of its 8 stride-1 ones
-TRAIN_LAUNCHES = {"integral_marginals": 2, "integral_marginals_bwd": 2,
-                  "conv_bn_link": 14, "conv3x3": 18}
-# the same by path: every bf16 link on wgmma; the physique convs with 32 or
-# more channels on both sides on tensor cores (8 forwards, 6 input
-# gradients), 1->32, 32->1 and their input gradients on the CUDA cores
-TRAIN_PATH_LAUNCHES = {
-    "conv_bn_link": {"launches_wgmma": 14, "launches_fma": 0},
-    "conv3x3": {"launches_tc": 14, "launches_cuda_core": 4},
-}
+# launches per training step come from
+# x_as_supervision_tpu_torch/checks.py:train_launches(config, remat mode):
+# the flagship step (remat off) two detector forwards (cameras, pseudo
+# images), each one decode and seven links, each differentiated, the
+# physique net's 10 convs and the input gradients of its 8 stride-1 ones;
+# every bf16 link on wgmma, the physique convs with 32 or more channels on
+# both sides on tensor cores (8 forwards, 6 input gradients), 1->32, 32->1
+# and their input gradients on the CUDA cores. These are the counters that
+# count by path:
+PATH_COUNTERS = {"conv_bn_link": ("launches_wgmma", "launches_fma"),
+                 "conv3x3": ("launches_tc", "launches_cuda_core")}
 # launches per eval batch: one detector forward per camera, each one decode
 # and seven links (all on wgmma in bf16); no backward, no physique net
 EVAL_LAUNCHES = {"integral_marginals": 4, "integral_marginals_bwd": 0,
@@ -384,13 +419,15 @@ VARIANTS = {
     "percam_simple_gcn": {"name": "simple_gcn"},
 }
 VARIANT_STEPS = 2
-# launches per step under per-camera BN: the link once per camera slice of
-# each train-mode Bottleneck (14 x 4 cameras); the rest as the flagship's
-VARIANT_LAUNCHES = dict(TRAIN_LAUNCHES, conv_bn_link=56)
-VARIANT_PATH_LAUNCHES = dict(
-    TRAIN_PATH_LAUNCHES,
-    conv_bn_link={"launches_wgmma": 56, "launches_fma": 0})
 CAMERAS = TRAIN_IMAGES // TRAIN_BATCH
+# phase 17, remat: the JAX package's five modes; the batch per camera that
+# needs one (the flagship step without remat peaks at 41.15 GB at 4 x 32)
+# and its steps (one warm-up, one timed)
+REMAT_MODES = ("none", "full", "pseudo", "head_decode", "decode")
+# the none runs whose pairs measure the card's run-to-run spread
+REMAT_NONE_RUNS = ("none", "none_b", "none_c")
+REMAT_BIG_BATCH = 64
+REMAT_BIG_STEPS = 2
 # the SMPL chain: SMPL's own size, batch 128
 SMPL_VERTS = 6890
 SMPL_BATCH = 128
@@ -411,10 +448,6 @@ MPII_IMAGES = 64
 MPII_HW = (720, 1280)
 # the fp32 checks of the eval2d forward: this many of the MPII crops
 MONO_FP32_IMAGES = 8
-# per mono step: the flagship step's launches at one camera x 32 (two
-# detector forwards, the physique net, their gradients)
-MONO_LAUNCHES = TRAIN_LAUNCHES
-MONO_PATH_LAUNCHES = TRAIN_PATH_LAUNCHES
 # per eval2d batch of 32: one detector forward
 EVAL2D_LAUNCHES = {"integral_marginals": 1, "integral_marginals_bwd": 0,
                    "conv_bn_link": 7, "conv3x3": 0}
@@ -1140,10 +1173,7 @@ def phase_train(top: int = 15) -> dict:
     step(0)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     counters = _counters()
-    for name, fn in counters.items():
-        fn.launches = 0
-        for attr in TRAIN_PATH_LAUNCHES.get(name, ()):
-            setattr(fn, attr, 0)
+    _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True))
@@ -1160,7 +1190,7 @@ def phase_train(top: int = 15) -> dict:
     launches = {name: fn.launches for name, fn in counters.items()}
     path_launches = {name: {attr: getattr(counters[name], attr)
                             for attr in attrs}
-                     for name, attrs in TRAIN_PATH_LAUNCHES.items()}
+                     for name, attrs in PATH_COUNTERS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = [a.elapsed_time(b) for a, b in events]
     losses = [{k: float(v) for k, v in sorted(m.items())} for m in history]
@@ -1172,11 +1202,12 @@ def phase_train(top: int = 15) -> dict:
              for n, p in _named_params(state).items()}
     unmoved = [n for n, d in moved.items() if d == 0]
     check(not unmoved, f"train: parameters that did not move: {unmoved}")
-    for name, per_step in TRAIN_LAUNCHES.items():
+    want, want_paths = _launches(cfg)
+    for name, per_step in want.items():
         check(launches[name] == per_step * TRAIN_STEPS,
               f"train: {name} launched {launches[name]} times in "
               f"{TRAIN_STEPS} steps, expected {per_step} per step")
-    for name, attrs in TRAIN_PATH_LAUNCHES.items():
+    for name, attrs in want_paths.items():
         for attr, per_step in attrs.items():
             check(path_launches[name][attr] == per_step * TRAIN_STEPS,
                   f"train: {name}.{attr} = {path_launches[name][attr]} in "
@@ -1239,7 +1270,7 @@ def _vis_step(cfg: dict, step, host_batches, counters) -> dict:
     metrics, outputs = step(3, with_outputs=True)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    for name, per_step in TRAIN_LAUNCHES.items():
+    for name, per_step in _launches(cfg)[0].items():
         check(launches[name] == per_step,
               f"vis step: {name} launched {launches[name]} times, expected "
               f"{per_step}")
@@ -1291,6 +1322,336 @@ def _vis_step(cfg: dict, step, host_batches, counters) -> dict:
                   skipped=dict(writer.skipped), event_bytes=event_bytes)
     emit(phase="vis_step", **record)
     return record
+
+
+def _remat_config(mode, batch: int = TRAIN_BATCH) -> dict:
+    """The flagship config under remat `mode` at `batch` per camera."""
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+
+    cfg = flagship_config()
+    cfg["model_params"]["remat"] = mode
+    cfg["train_params"]["batch_size"] = batch
+    return cfg
+
+
+def _remat_steps(mode: str, batches: list, steps: int,
+                 batch: int = TRAIN_BATCH) -> dict:
+    """One warm-up and `steps` timed steps (CUDA events) of the flagship
+    config under `mode` in bf16 on `batches`; peak memory over the mode
+    (reset before its state is built) and over the timed steps; the
+    launches per step, held to checks.train_launches."""
+    import torch
+
+    from x_as_supervision_tpu_torch.train.state import train_step
+    from x_as_supervision_tpu_torch.train.trainer import step_generator
+
+    cfg = _remat_config(mode, batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spec, state = _gan(cfg, torch.bfloat16, "cuda", SEED)
+    check(spec.remat_mode == mode, f"remat {mode}: spec {spec.remat_mode}")
+
+    def step(i):
+        return train_step(state, batches[i], step_generator(SEED, i, "cuda"))
+
+    warm = {k: float(v) for k, v in sorted(step(0).items())}
+    torch.cuda.synchronize()
+    warm_peak = torch.cuda.max_memory_allocated()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    history = []
+    for i, (ev0, ev1) in enumerate(events, start=1):
+        ev0.record()
+        history.append(step(i))
+        ev1.record()
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    images = len(cfg["model_params"]["cam_id_list"]) * batch
+    what = f"remat {mode} at {images} images a step"
+    launches, paths = _check_train_launches(steps, what, cfg)
+    losses = [{k: float(v) for k, v in sorted(m.items())} for m in history]
+    for m in [warm] + losses:
+        check(len(m) == 7 and all(np.isfinite(v) for v in m.values()),
+              f"{what}: missing or non-finite losses {m}")
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    del spec, state, history
+    torch.cuda.empty_cache()
+    return dict(mode=mode, batch=batch, step_ms=step_ms,
+                mean_step_ms=sum(step_ms) / len(step_ms),
+                img_per_s=len(events) * images * 1e3 / sum(step_ms),
+                peak_memory_gb=max(warm_peak, step_peak) / 1e9,
+                timed_peak_memory_gb=step_peak / 1e9,
+                warmup_losses=warm, losses=losses,
+                launches_per_step=launches, path_launches_per_step=paths)
+
+
+def _remat_parity_run(cfg: dict, batch: dict) -> dict:
+    """One fused fp32 step of `cfg` on the card from phase 7's weights and
+    conditioning (dropout off): its losses, the gradients Adam took, the
+    carried discriminator gradient and the modules' tensors after it, on
+    the host."""
+    import torch
+
+    from x_as_supervision_tpu_torch.models.resnet import Bottleneck
+    from x_as_supervision_tpu_torch.train import state as S
+    from x_as_supervision_tpu_torch.train.trainer import step_generator
+
+    spec, state = _gan(cfg, torch.float32, "cuda", SEED)
+    with torch.no_grad():
+        for m in spec.detector.modules():
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.fill_(0.1)
+    _dropout_off(spec.discriminator)
+    applied = []
+    real_apply = S._apply
+
+    def record(opt, params, grads, lr):
+        applied.append([g.detach().cpu() for g in grads])
+        real_apply(opt, params, grads, lr)
+
+    S._apply = record
+    try:
+        metrics = S.train_step(state, batch, step_generator(SEED, 0, "cuda"))
+        torch.cuda.synchronize()
+    finally:
+        S._apply = real_apply
+    grads = dict(zip(["disc." + n for n in state.disc_names]
+                     + ["gen." + n for n in state.gen_names],
+                     applied[0] + applied[1]))
+    after = {}
+    for name in ("detector", "physique", "discriminator"):
+        after.update({f"{name}.{k}": v.detach().cpu() for k, v in
+                      getattr(spec, name).state_dict().items()})
+    out = dict(metrics={k: float(v) for k, v in metrics.items()},
+               grads=grads, after=after,
+               pending={n: g.detach().cpu() for n, g in
+                        zip(state.disc_names, state.pending_disc_grads)},
+               cancelled={"gen.physique." + n
+                          for n in spec.physique.bn_cancelled_biases()})
+    del spec, state
+    return out
+
+
+def _remat_distance(got: dict, want: dict, lr: float) -> dict:
+    """How far one parity run lies from another: per group, the largest
+    over tensors of max |got - want| over max |want| (gradients, the
+    carried gradient, running statistics; a cancelled bias's gradient,
+    zero up to rounding, left out) or, for the parameters after Adam, in
+    learning rates; the losses' largest relative error; the
+    num_batches_tracked that differ."""
+    import torch
+
+    def rel(a, b):
+        scale = float(b.abs().max())
+        return float((a - b).abs().max()) / scale if scale > 0 else \
+            float((a - b).abs().max())
+
+    grads = [rel(got["grads"][k], w) for k, w in want["grads"].items()
+             if k not in want["cancelled"]]
+    pending = [rel(got["pending"][k], w) for k, w in want["pending"].items()]
+    stats, params, tracked = [], [], []
+    for k, w in want["after"].items():
+        g = got["after"][k]
+        if "num_batches" in k:
+            if not torch.equal(g, w):
+                tracked.append(k)
+        elif "running" in k:
+            stats.append(rel(g, w))
+        else:
+            params.append(float((g - w).abs().max()) / lr)
+    loss = max(abs(got["metrics"][k] - w) / abs(w)
+               for k, w in want["metrics"].items())
+    return dict(loss_rel=loss, grads=max(grads), pending=max(pending),
+                running_stats=max(stats), params_lr=max(params),
+                tracked_differ=tracked)
+
+
+def _remat_parity() -> dict:
+    """Each mode's fp32 step of phase 7's reduced config on the card
+    against ``none``'s from the same weights and batch (TF32 off, cuDNN's
+    deterministic algorithms): losses within 1e-6 relative; gradients, the
+    carried gradient, the parameters after Adam and the running statistics
+    bitwise or within twice the distance of two ``none`` runs;
+    num_batches_tracked equal (a recompute that moved the running
+    statistics again would part them by about a tenth of their change).
+    The card's step is not bit-reproducible (the decode forward's atomic
+    x/y sums), and one pair of runs samples that spread once: the distance
+    of two ``none`` runs is the largest of the three pairs of three."""
+    import copy
+
+    import torch
+
+    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from x_as_supervision_tpu_torch.train.trainer import to_device
+
+    base = _parity_config()
+    lr = float(base["train_params"]["lr_kp_detector"])
+    b = base["train_params"]["batch_size"]
+    batch = to_device(SyntheticPoseDataset(
+        num_samples=b, cam_id_list=(0, 1), patch_size=64,
+        seed=SEED).batch(0, b), "cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    set_tf32(False)
+    set_cudnn_deterministic(True)
+    try:
+        runs = {}
+        for run in REMAT_NONE_RUNS + REMAT_MODES[1:]:
+            cfg = copy.deepcopy(base)
+            cfg["model_params"]["remat"] = ("none" if run in REMAT_NONE_RUNS
+                                            else run)
+            runs[run] = _remat_parity_run(cfg, batch)
+    finally:
+        set_tf32(True)
+        set_cudnn_deterministic(deterministic)
+    nones = [runs.pop(r) for r in REMAT_NONE_RUNS]
+    ref = nones[0]
+    pairs = [_remat_distance(a, b, lr) for i, b in enumerate(nones)
+             for a in nones[i + 1:]]
+    for d in pairs:
+        check(not d["tracked_differ"], f"remat parity: two none runs "
+              f"count BatchNorm updates apart: {d['tracked_differ']}")
+    floor = {k: max(d[k] for d in pairs) for k in pairs[0]
+             if k != "tracked_differ"}
+    out = {"none_pairs": pairs, "floor": floor}
+    for mode, run in runs.items():
+        d = _remat_distance(run, ref, lr)
+        out[mode] = d
+        check(d["loss_rel"] <= 1e-6,
+              f"remat parity {mode}: losses {d['loss_rel']} apart "
+              f"(relative) from none's")
+        check(not d["tracked_differ"],
+              f"remat parity {mode}: num_batches_tracked differ from "
+              f"none's: {d['tracked_differ']}")
+        for key in ("grads", "pending", "params_lr", "running_stats"):
+            check(d[key] == 0 or d[key] <= 2 * floor[key],
+                  f"remat parity {mode}: {key} {d[key]} from none's, two "
+                  f"none runs {floor[key]} apart")
+    emit(phase="remat_parity", config="flagship reduced: ResNet-50 at "
+         "64^2, 2 cameras, batch 2, D = 16, fp32", distances=out)
+    return out
+
+
+def _remat_cli() -> dict:
+    """The flagship config written without its remat key through the train
+    CLI (--synthetic, one epoch of 4 steps): the launches per step those
+    of ``full``, as the JAX package reads an absent key."""
+    import tempfile
+
+    import torch
+
+    from x_as_supervision_tpu_torch.train.__main__ import main as train_main
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = _remat_config("full")
+        del cfg["model_params"]["remat"]
+        cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
+        cfg_path = os.path.join(root, "flagship_no_remat_key.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_main(["--config", cfg_path, "--synthetic", "--seed",
+                              str(SEED), "--log_dir",
+                              os.path.join(root, "log")])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        steps = TRAIN_IMAGES // TRAIN_BATCH
+        check(trainer.state.step == steps and trainer.spec.remat_mode
+              == "full", f"remat train CLI: {trainer.state.step} steps, "
+              f"mode {trainer.spec.remat_mode}")
+        launches, paths = _check_train_launches(steps, "remat train CLI",
+                                                cfg, "full")
+        check(trainer.history and all(
+            np.isfinite(list(h.values())).all() for h in trainer.history),
+            f"remat train CLI: losses {trainer.history}")
+        del trainer
+        torch.cuda.empty_cache()
+    return dict(train_cli_s=train_s, mode="full (key absent)",
+                launches_per_step=launches, path_launches_per_step=paths)
+
+
+def _avg_pool_head_cases() -> list[dict]:
+    """AvgPoolHead at (32, 2048, 8, 8) -> 54 on the card against the CPU
+    on the same weights and input, fp32 (TF32 off) and bf16."""
+    import torch
+
+    from x_as_supervision_tpu_torch.models.resnet import AvgPoolHead
+
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(32, 2048, 8, 8, generator=gen)
+    cases = []
+    set_tf32(False)
+    try:
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            torch.manual_seed(SEED)
+            head = AvgPoolHead(2048, 54, dtype)
+            with torch.no_grad():
+                want = head(x)
+                got = head.cuda()(x.cuda()).cpu()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(got.dtype == want.dtype == torch.float32
+                  and got.shape == (32, 54) and err <= tol * max(scale, 1.0),
+                  f"AvgPoolHead {_kind(dtype)}: card vs CPU {err} "
+                  f"(scale {scale}), {got.dtype} {tuple(got.shape)}")
+            cases.append(dict(dtype=_kind(dtype), max_abs_err=err,
+                              scale=scale, tol=tol))
+    finally:
+        set_tf32(True)
+    return cases
+
+
+def phase_remat(card: str) -> dict:
+    """The remat modes on the card (see the module docstring, phase 17)."""
+    import torch
+
+    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from x_as_supervision_tpu_torch.train.trainer import to_device
+
+    t0 = time.perf_counter()
+    cams = _remat_config("none")["dataset_params"]["cam_id_list"]
+    ds = SyntheticPoseDataset(num_samples=TRAIN_BATCH * (TRAIN_STEPS + 1),
+                              cam_id_list=cams, patch_size=PATCH, seed=SEED)
+    batches = [to_device(ds.batch(i * TRAIN_BATCH, TRAIN_BATCH), "cuda")
+               for i in range(TRAIN_STEPS + 1)]
+    modes = {}
+    for mode in REMAT_MODES:
+        modes[mode] = _remat_steps(mode, batches, TRAIN_STEPS)
+        emit(phase="remat_mode", card=card, **modes[mode])
+    del batches
+    parity = _remat_parity()
+    # the batch remat exists for: 4 x 64 under full
+    torch.cuda.empty_cache()
+    ds = SyntheticPoseDataset(num_samples=REMAT_BIG_BATCH * REMAT_BIG_STEPS,
+                              cam_id_list=cams, patch_size=PATCH, seed=SEED)
+    batches = [to_device(ds.batch(i * REMAT_BIG_BATCH, REMAT_BIG_BATCH),
+                         "cuda") for i in range(REMAT_BIG_STEPS)]
+    big = _remat_steps("full", batches, REMAT_BIG_STEPS - 1, REMAT_BIG_BATCH)
+    del batches
+    memory_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    check(big["peak_memory_gb"] < memory_gb,
+          f"remat full at 4 x {REMAT_BIG_BATCH}: peak "
+          f"{big['peak_memory_gb']} GB of {memory_gb}")
+    emit(phase="remat_big_batch", card=card, card_memory_gb=memory_gb,
+         **big)
+    cli = _remat_cli()
+    emit(phase="remat_cli", **cli)
+    head = _avg_pool_head_cases()
+    emit(phase="avg_pool_head", cases=head)
+    record = dict(phase="remat_summary", card=card,
+                  seconds=time.perf_counter() - t0,
+                  step_ms={m: r["mean_step_ms"] for m, r in modes.items()},
+                  peak_memory_gb={m: r["peak_memory_gb"]
+                                  for m, r in modes.items()},
+                  launches_per_step={m: r["launches_per_step"]
+                                     for m, r in modes.items()},
+                  big_batch_peak_gb=big["peak_memory_gb"],
+                  big_batch_step_ms=big["mean_step_ms"])
+    emit(**record)
+    return dict(record, modes=modes, parity=parity, big_batch=big, cli=cli,
+                avg_pool_head=head)
 
 
 def _parity_config() -> dict:
@@ -1465,17 +1826,25 @@ def _reset_counts() -> None:
     """Every launch count to 0, by kernel and by path."""
     for name, fn in _counters().items():
         fn.launches = 0
-        for attr in TRAIN_PATH_LAUNCHES.get(name, ()):
+        for attr in PATH_COUNTERS.get(name, ()):
             setattr(fn, attr, 0)
 
 
-def _check_train_launches(steps: int, what: str,
-                          want: dict = TRAIN_LAUNCHES,
-                          want_paths: dict = TRAIN_PATH_LAUNCHES
+def _launches(cfg: dict, mode=None) -> tuple[dict, dict]:
+    """One bf16 train step's launches of `cfg` by kernel and by path, under
+    its remat mode or `mode` (x_as_supervision_tpu_torch/checks.py:
+    train_launches)."""
+    from x_as_supervision_tpu_torch.checks import train_launches
+
+    return train_launches(cfg, mode)
+
+
+def _check_train_launches(steps: int, what: str, cfg: dict, mode=None
                           ) -> tuple[dict, dict]:
-    """The launches since _reset_counts, checked against `want` and
-    `want_paths` (by default the flagship step's) per step over `steps`
-    steps; returns them per step, by kernel and by path."""
+    """The launches since _reset_counts, checked against `cfg`'s per step
+    in bf16 (under its remat mode or `mode`) over `steps` steps; returns
+    them per step, by kernel and by path."""
+    want, want_paths = _launches(cfg, mode)
     counters = _counters()
     launches = {name: fn.launches for name, fn in counters.items()}
     for name, per_step in want.items():
@@ -1595,7 +1964,7 @@ def phase_train_eval() -> dict:
         steps = TRAIN_IMAGES // TRAIN_BATCH
         check(trainer.state.step == steps,
               f"train CLI: {trainer.state.step} steps, expected {steps}")
-        train_launches, _ = _check_train_launches(steps, "train CLI")
+        train_launches, _ = _check_train_launches(steps, "train CLI", cfg)
         (run,) = os.listdir(log_dir)
         path = os.path.join(log_dir, run, "00000_ckpt")
         check(sorted(os.listdir(os.path.join(log_dir, run)))
@@ -1722,7 +2091,7 @@ def phase_real_data(card: str) -> dict:
             check(trainer.state.step == steps,
                   f"{what}: {trainer.state.step} steps, expected {steps}")
             run["launches_per_step"], run["path_launches_per_step"] = \
-                _check_train_launches(steps, what)
+                _check_train_launches(steps, what, cfgs[feed])
             check(len(run["loader_wait_ms"]) == len(run["step_ms"]) == steps
                   == len(trainer.loader.batch_seconds),
                   f"{what}: {len(run['loader_wait_ms'])} waits, "
@@ -2242,10 +2611,8 @@ def _variant_steps(name: str, disc_updates: dict, per_camera_bn: bool = True,
         history.append(step(i))
         ev1.record()
     torch.cuda.synchronize()
-    launches, paths = _check_train_launches(
-        VARIANT_STEPS, f"variants {name}",
-        *((VARIANT_LAUNCHES, VARIANT_PATH_LAUNCHES) if per_camera_bn
-          else (TRAIN_LAUNCHES, TRAIN_PATH_LAUNCHES)))
+    launches, paths = _check_train_launches(VARIANT_STEPS,
+                                            f"variants {name}", cfg)
     losses = [{k: float(v) for k, v in sorted(m.items())} for m in history]
     for m in losses:
         check(len(m) == 7 and all(np.isfinite(v) for v in m.values()),
@@ -2482,9 +2849,8 @@ def _variants_cli() -> dict:
         check(trainer.state.step == steps,
               f"variants train CLI: {trainer.state.step} steps, expected "
               f"{steps}")
-        launches, _ = _check_train_launches(
-            steps, "variants train CLI", VARIANT_LAUNCHES,
-            VARIANT_PATH_LAUNCHES)
+        launches, _ = _check_train_launches(steps, "variants train CLI",
+                                            cfg)
         check(all(np.isfinite(v) for h in trainer.history
                   for v in h.values()) and trainer.history,
               f"variants train CLI: losses {trainer.history}")
@@ -2732,8 +3098,7 @@ def phase_mono(card: str) -> dict:
         check(trainer.state.step == MONO_STEPS,
               f"{what}: {trainer.state.step} steps, expected {MONO_STEPS}")
         run["launches_per_step"], run["path_launches_per_step"] = \
-            _check_train_launches(MONO_STEPS, what, MONO_LAUNCHES,
-                                  MONO_PATH_LAUNCHES)
+            _check_train_launches(MONO_STEPS, what, cfg)
         run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         check(len(trainer.history) == MONO_STEPS and all(
             set(h) == {f"loss/{k}" for k in MONO_LOSSES}
@@ -2938,8 +3303,10 @@ def _campaign_train(cfg_path: str, log_dir: str, what: str,
           f"{trainer.images_per_step} images a step")
     check(trainer.state.step == CAMPAIGN_STEPS,
           f"{what}: {trainer.state.step} steps, expected {CAMPAIGN_STEPS}")
+    with open(cfg_path) as f:
+        cfg = json.load(f)
     run["launches_per_step"], run["path_launches_per_step"] = \
-        _check_train_launches(CAMPAIGN_STEPS, what)
+        _check_train_launches(CAMPAIGN_STEPS, what, cfg)
     check(len(run["step_ms"]) == len(run["loader_wait_ms"])
           == len(run["h2d_ms"]) == CAMPAIGN_STEPS,
           f"{what}: {len(run['step_ms'])} steps, "
@@ -3154,7 +3521,7 @@ def _dp_rank_counts() -> dict:
     return dict(
         launches={name: fn.launches for name, fn in counters.items()},
         path_launches={name: {a: getattr(counters[name], a) for a in attrs}
-                       for name, attrs in TRAIN_PATH_LAUNCHES.items()})
+                       for name, attrs in PATH_COUNTERS.items()})
 
 
 def _dp_rank_cli(out: str, which: str, args: list) -> None:
@@ -3714,11 +4081,12 @@ def phase_dp(card: str, root: str) -> dict:
           and train["backend"] == "nccl",
           f"dp train CLI: {train['steps']} steps, world "
           f"{train['world']}, backend {train['backend']}")
-    for name, per_step in TRAIN_LAUNCHES.items():
+    want, want_paths = _launches(cfg)
+    for name, per_step in want.items():
         check(train["launches"][name] == per_step * steps,
               f"dp train CLI: {name} launched {train['launches'][name]}"
               f" times in {steps} steps, expected {per_step} per step")
-    for name, attrs in TRAIN_PATH_LAUNCHES.items():
+    for name, attrs in want_paths.items():
         for attr, per_step in attrs.items():
             got = train["path_launches"][name][attr]
             check(got == per_step * steps,
@@ -3746,7 +4114,7 @@ def phase_dp(card: str, root: str) -> dict:
     synced_bn = _synced_bn_cases()
     pair = _dp_pair(root)
     (cost,) = _torchrun(root, "cost", [], timeout=600)
-    for name, per_step in TRAIN_LAUNCHES.items():
+    for name, per_step in want.items():
         got = cost["launches"][name]
         check(got == per_step * cost["dp_steps"],
               f"dp cost: {name} launched {got} times in {cost['dp_steps']} "
@@ -4123,7 +4491,7 @@ def phase_tp(card: str, root: str) -> dict:
               f"tp train CLI rank {r}: {train['steps']} steps, world "
               f"{train['world']}, grid {train['grid']}, backend "
               f"{train['backend']}")
-        for name, per_step in TRAIN_LAUNCHES.items():
+        for name, per_step in _launches(cfg)[0].items():
             check(train["launches"][name] == per_step * steps,
                   f"tp train CLI rank {r}: {name} launched "
                   f"{train['launches'][name]} times in {steps} steps, "
@@ -4152,7 +4520,7 @@ def phase_tp(card: str, root: str) -> dict:
     _, ev = _eval_cli(cfg_path, path, "best", True)
     cost = _torchrun(root, "tp_cost", [], timeout=900, nproc=TP_MODEL)
     for c in cost:
-        for name, per_step in TRAIN_LAUNCHES.items():
+        for name, per_step in _launches(cfg)[0].items():
             got = c["launches"][name]
             check(got == per_step * c["tp_steps"],
                   f"tp cost rank {c['rank']}: {name} launched {got} times in "
@@ -4222,7 +4590,7 @@ def _counts_record(module: str) -> dict:
         rank=int(os.environ.get("RANK", "0")),
         launches={name: fn.launches for name, fn in counters.items()},
         path_launches={name: {a: getattr(counters[name], a) for a in attrs}
-                       for name, attrs in TRAIN_PATH_LAUNCHES.items()})
+                       for name, attrs in PATH_COUNTERS.items()})
 
 
 def launch_child_main(argv: list) -> int:
@@ -4397,12 +4765,13 @@ def _launch_plain(root: str) -> dict:
           f"launch_train: ran {rec['module']}")
     steps = RESUMABLE_EPOCHS * TRAIN_IMAGES // TRAIN_BATCH
     per_step = {k: v / steps for k, v in rec["launches"].items()}
-    check(per_step == {k: float(v) for k, v in TRAIN_LAUNCHES.items()},
+    want, want_paths = _launches(cfg)
+    check(per_step == {k: float(v) for k, v in want.items()},
           f"launch_train: launches per step {per_step}")
     paths = {k: {a: v / steps for a, v in d.items()}
              for k, d in rec["path_launches"].items()}
     check(paths == {k: {a: float(v) for a, v in d.items()}
-                    for k, d in TRAIN_PATH_LAUNCHES.items()},
+                    for k, d in want_paths.items()},
           f"launch_train: launches by path per step {paths}")
     run_dir = _run_dir(log, "flagship_launch.json")
     last = os.path.join(run_dir, f"{RESUMABLE_EPOCHS - 1:05d}_ckpt")
@@ -4464,7 +4833,8 @@ def _launch_pair(root: str) -> dict:
     steps = 64 // DP_PAIR_BATCH
     for r in records:
         per_step = {k: v / steps for k, v in r["launches"].items()}
-        check(per_step == {k: float(v) for k, v in TRAIN_LAUNCHES.items()},
+        check(per_step == {k: float(v)
+                           for k, v in _launches(cfg)[0].items()},
               f"launch pair: rank {r['rank']} launches per step {per_step}")
     run = _run_dir(log, "flagship_pair.json")
     check(os.path.isfile(os.path.join(run, "00000_ckpt", "state.pt")),
@@ -4814,6 +5184,7 @@ def main() -> int:
         del est
         torch.cuda.empty_cache()
         train = phase_train()
+        remat = phase_remat(device["nvidia_smi"])
         phase_train_parity()
         train_eval = phase_train_eval()
         phase_eval_parity()
@@ -4867,6 +5238,8 @@ def main() -> int:
             dtype=case["dtype"], shape=case["shape"],
             library_nchw_ms=case.get("library_nchw_ms"),
             path_launches=train["path_launches_per_step"].get(name),
+            remat_launches={mode: r["launches_per_step"][name]
+                            for mode, r in remat["modes"].items()},
             serve_launches=serve["launches"].get(name),
             eval_launches=train_eval["modes"]["best"][
                 "launches_per_batch"][name],

@@ -148,3 +148,28 @@ def test_head_and_stem_variants_compute_the_standard_function(key):
     with torch.no_grad():
         got = tdet(nchw(images)).kps
     np.testing.assert_allclose(got.numpy(), np.asarray(want.kps), atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_avg_pool_head_matches_jax(dtype):
+    """The port's AvgPoolHead against the JAX package's on the flax Dense
+    carried through weights.avg_pool_head_state_dict, on one seeded input:
+    fp32 to 1e-5, bf16 compute to 1e-2; the output fp32 in both (the JAX
+    package's tests/test_models.py holds its own the same way)."""
+    from x_as_supervision_tpu.models.resnet import AvgPoolHead as JaxHead
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(3, 5, 4, 32)).astype(np.float32)  # NHWC
+    jhead = JaxHead(out_channels=54, dtype=getattr(jnp, dtype))
+    variables = to_numpy_tree(jhead.init(jax.random.PRNGKey(2),
+                                         jnp.asarray(x)))
+    want = jhead.apply(variables, jnp.asarray(x))
+    head = R.AvgPoolHead(32, 54, dtype=getattr(torch, dtype))
+    head.load_state_dict(weights.avg_pool_head_state_dict(
+        variables["params"]))
+    got = head(nchw(x))
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    assert got.shape == (3, 54)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=tol, atol=tol)

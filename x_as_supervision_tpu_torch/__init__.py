@@ -18,7 +18,8 @@ the offline tools that render the self-rendered campaign:
               profiler), the evaluator, its metrics and tables
   eval/       the eval CLI (python -m x_as_supervision_tpu_torch.eval)
   models/     ResNet backbone + deconv head, integral detectors (eval and
-              train), physique net, discriminator, composed GAN losses
+              train), physique net, discriminator, composed GAN losses,
+              the remat modes' checkpoint regions, AvgPoolHead
   ops/        integral decode and its gradient, fused BN->ReLU->conv3x3
               link, small-channel conv3x3, renderer, geometry and the DLT
               triangulation, losses, and the ctypes bindings of the CUDA
@@ -34,7 +35,8 @@ the offline tools that render the self-rendered campaign:
               self-rendered campaign and its manifest
   checks.py   helpers shared by the tests and chip_smoke.py (the anchored
               eval fixture, eval_result.txt reader, state comparison,
-              TensorBoard event reader, miniature on-disk datasets)
+              TensorBoard event reader, miniature on-disk datasets, the
+              kernel launches of a train step by remat mode)
   weights.py  JAX variables -> state_dicts; seeded weights; the ImageNet
               backbone init
   config.py   YAML / JSON config loading

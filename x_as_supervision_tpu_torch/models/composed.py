@@ -22,8 +22,27 @@ A batch that carries ``cam_mono_img`` (the TikTok and MPII datasets, the
 2D path) takes the mono branch, as in the JAX package: one ``mono`` camera
 whatever the config's cam_id_list, its world lift the reference's
 camera-free one (``_mono_world``), no ``kp_gt_world`` output, and no
-symmetry loss (a zero tensor where symmetry is configured). Left out: the
-remat modes (the port keeps every activation).
+symmetry loss (a zero tensor where symmetry is configured).
+
+Rematerialization (``model_params.remat``, ``GanSpec.remat_mode``; the JAX
+package's five modes, mapped by ``_remat_mode``, an absent key ``full``):
+the train-mode detector forwards of the generator phase run through
+``_detector_apply``, which makes checkpoint regions (models/remat.py) that
+keep their inputs and recompute the rest in the backward:
+
+  * ``none``: no region;
+  * ``full``: each detector forward (cameras and pseudo images), and the
+    line renderer;
+  * ``pseudo``: the pseudo-image stream's detector forward only;
+  * ``head_decode``: the head's 1x1 projection and the decode of each
+    forward (the detector's "features" / "tail" stages): the saved value
+    is the num_filters-channel feature map, not the K*D-channel logits;
+  * ``decode``: the decode alone, inside the detector (its
+    ``remat_decode``, set by train/factory.py).
+
+Every mode computes what ``none`` computes; a recompute leaves the
+BatchNorm running statistics alone. The discriminator phase's no-grad
+forward, eval and serving make no region.
 
 Data parallelism (parallel/): in a process group each rank holds its rows
 of every camera's global batch, and each loss term is this rank's share of
@@ -52,6 +71,7 @@ from ..ops import geometry as G
 from ..ops import losses as L
 from ..parallel import collectives as C
 from ..parallel import mesh
+from .remat import checkpoint
 
 
 def cal_links(parent_ids, line_select_ids=None, use_root=False,
@@ -89,6 +109,9 @@ class GanSpec:
     body_width: float
     disc_sup_dim: int = 3
     use_aug: bool = False
+    # 'none' | 'full' | 'pseudo' | 'head_decode' | 'decode' (module
+    # docstring)
+    remat_mode: str = "full"
     fuse_gan_step: bool = True
     feed_mean: tuple | None = None
     feed_std: tuple | None = None
@@ -108,8 +131,45 @@ class GanSpec:
             body_width=float(model_params.get("body_width", 3.0)) * 1e-3,
             disc_sup_dim=disc_params.get("disc_sup_dim", 3),
             use_aug=bool(disc_params.get("use_aug", False)),
+            remat_mode=_remat_mode(model_params.get("remat", True)),
             fuse_gan_step=bool(model_params.get("fuse_gan_step", True)),
         )
+
+
+def _remat_mode(cfg) -> str:
+    """A config's ``remat`` value (bool, None or a mode's name) -> the
+    mode: True is ``full``, False and None ``none``."""
+    if cfg is True:
+        return "full"
+    if cfg is False or cfg is None:
+        return "none"
+    if cfg in ("none", "full", "decode", "head_decode", "pseudo"):
+        return cfg
+    raise ValueError(f"unknown remat mode {cfg!r}")
+
+
+def _detector_apply(spec: GanSpec, imgs, force_remat: bool = False):
+    """One (camera-batched) detector forward, in the checkpoint regions of
+    spec.remat_mode (module docstring) where the detector is in train mode
+    and a gradient is being recorded; `force_remat` (the pseudo stream
+    under ``pseudo``) makes the whole forward one region."""
+    det = spec.detector
+    if not (det.training and torch.is_grad_enabled()):
+        return det(imgs)
+    if spec.remat_mode == "head_decode":
+        return checkpoint(functools.partial(det, stage="tail"),
+                          det(imgs, stage="features"))
+    if spec.remat_mode == "full" or force_remat:
+        return checkpoint(det, imgs)
+    return det(imgs)
+
+
+def _render(spec: GanSpec, kps2d, side: int):
+    """The line masks (CB, 1, S, S) of hypothesis 0's (CB, K, 2) keypoints:
+    one render over all cameras."""
+    return G.draw_lines(kps2d, side, spec.render_parent_ids,
+                        spec.render_child_ids, spec.body_width
+                        ).amax(dim=1, keepdim=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -244,7 +304,7 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
     imgs = _nchw(_stack(batch, cams, "img"))
     side = imgs.shape[-1]
     b = imgs.shape[0] // nc
-    decode = spec.detector(imgs)
+    decode = _detector_apply(spec, imgs)
     kps_all = decode.kps.reshape(nc, b, *decode.kps.shape[1:])  # (C,B,H,K,3)
     nh = kps_all.shape[2]
     kps_world = {}
@@ -273,9 +333,11 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
 
     # one line render over all cameras, hypothesis 0's x, y
     kps2d = kps_all[:, :, 0, :, :2].reshape(nc * b, -1, 2)
-    masks_all = G.draw_lines(kps2d, side, spec.render_parent_ids,
-                             spec.render_child_ids, spec.body_width
-                             ).amax(dim=1, keepdim=True)  # (CB, 1, S, S)
+    if spec.remat_mode == "full" and torch.is_grad_enabled():
+        masks_all = checkpoint(functools.partial(_render, spec, side=side),
+                               kps2d)
+    else:
+        masks_all = _render(spec, kps2d, side)
     if outputs is not None:
         for i, cam in enumerate(cams):
             outputs[f"mask_heatmap_line_cam_{cam}"] = _first_nhwc(masks_all,
@@ -330,7 +392,9 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
                               * cfg["smpl_gen_loss"]["weight"])
 
     if "smpl_pseudo_img_loss" in cfg:
-        decode_p = spec.detector(_nchw(_stack(batch, cams, "pseudo_img")))
+        decode_p = _detector_apply(
+            spec, _nchw(_stack(batch, cams, "pseudo_img")),
+            force_remat=spec.remat_mode == "pseudo")
         pred_all = decode_p.kps.reshape(nc, b, nh, *decode_p.kps.shape[2:])
         h0w = cfg["smpl_pseudo_img_loss"].get("hypo0_weight", 0.0)
         loss_pseudo = 0.0

@@ -63,6 +63,12 @@ which then runs conv2's Cout shard (tp.link_route: or conv2's whole weight
 where the shard is too narrow for the kernel); bn2 folds the shard's
 stats and applies them to the shard, which is then gathered. The head's
 logits are gathered before the decode.
+
+Rematerialization (models/remat.py): a checkpoint region's recompute runs
+each train-mode BatchNorm again; ``update_running_stats`` then moves
+nothing, so every running statistic moves once a forward whatever the
+remat mode. The head splits at its 1x1 projection (``stage``) for the
+``head_decode`` mode. ``AvgPoolHead`` is the JAX package's pooled head.
 """
 
 from __future__ import annotations
@@ -74,6 +80,7 @@ import torch.nn.functional as F
 from ..ops.conv_bn import fused_link, make_stats_fold
 from ..parallel import collectives as C
 from ..parallel import tp
+from .remat import recomputing
 
 # {depth: (block kind, blocks per stage)}
 RESNET_SPEC = {
@@ -125,7 +132,10 @@ def update_running_stats(bn: nn.BatchNorm2d, mean, var) -> None:
     """Fold batch statistics (fp32, biased variance) into bn's running ones:
     running = (1 - momentum) * running + momentum * batch, flax's
     momentum * running + (1 - momentum) * batch with its momentum 0.9;
-    momentum None is torch's cumulative average."""
+    momentum None is torch's cumulative average. A checkpoint region's
+    recompute (models/remat.py) moves nothing: the first forward did."""
+    if recomputing():
+        return
     with torch.no_grad():
         bn.num_batches_tracked += 1
         f = (1.0 / float(bn.num_batches_tracked) if bn.momentum is None
@@ -498,7 +508,12 @@ class ResNetBackbone(nn.Module):
 
 class DeconvHead(nn.Module):
     """num_layers x (ConvTranspose k4 s2 + BN + ReLU) + 1x1 projection to
-    K*D channels: (B, C, 8, 8) -> (B, K*D, 64, 64)."""
+    K*D channels: (B, C, 8, 8) -> (B, K*D, 64, 64).
+
+    ``stage``: "all"; "features", the deconv stack alone (the
+    num_filters-channel map); "final", the 1x1 projection alone (x is then
+    that map). The split carries the ``head_decode`` checkpoint region
+    (models/composed.py), which starts before the projection."""
 
     def __init__(self, in_channels: int, num_joints: int, depth_dim: int,
                  num_deconv_layers: int = 3, num_filters: int = 256,
@@ -517,8 +532,11 @@ class DeconvHead(nn.Module):
         self.features = nn.Sequential(*layers)
         self.fp32_logits = fp32_logits
 
-    def forward(self, x):
-        x = self.features[:-1](x)
+    def forward(self, x, stage: str = "all"):
+        if stage != "final":
+            x = self.features[:-1](x)
+            if stage == "features":
+                return x
         # the decode kernel reads each joint's volume as one contiguous block,
         # so the logits are produced in NCHW memory (and gathered whole
         # under tensor parallelism: the decode runs on every model rank)
@@ -528,7 +546,9 @@ class DeconvHead(nn.Module):
 
 
 class ResPoseNet(nn.Module):
-    """Backbone + head: (B, 3, S, S) images -> (B, K*D, S/4, S/4) logits."""
+    """Backbone + head: (B, 3, S, S) images -> (B, K*D, S/4, S/4) logits.
+    ``stage``: "all"; "features", the backbone and the deconv stack;
+    "final", the head's projection of that feature map (DeconvHead)."""
 
     def __init__(self, num_joints: int, depth_dim: int, num_layers: int = 50,
                  fp32_logits: bool = True,
@@ -538,5 +558,25 @@ class ResPoseNet(nn.Module):
         self.head = DeconvHead(self.backbone.out_channels, num_joints,
                                depth_dim, fp32_logits=fp32_logits)
 
+    def forward(self, x, stage: str = "all"):
+        if stage == "final":
+            return self.head(x, "final")
+        return self.head(self.backbone(x), stage)
+
+
+class AvgPoolHead(nn.Module):
+    """Global average pool and a fully connected layer (the JAX package's
+    AvgPoolHead, unused by the shipped entry points): (B, C, H, W) ->
+    (B, out_channels) fp32. The mean over H, W and the layer compute in
+    `dtype` (fp32 parameters cast to it), as flax's ``Dense(dtype=...)``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc = nn.Linear(in_channels, out_channels)
+
     def forward(self, x):
-        return self.head(self.backbone(x))
+        x = x.to(self.dtype).mean(dim=(2, 3))
+        return F.linear(x, self.fc.weight.to(self.dtype),
+                        self.fc.bias.to(self.dtype)).float()

@@ -78,18 +78,22 @@ def flagship_config(tiny: bool = False) -> dict:
 def build_gan_spec(config: dict, dtype=torch.float32) -> GanSpec:
     """The GAN's modules (on the CPU, in train mode, fp32 parameters; the
     detector and physique net compute in `dtype`, the discriminator in
-    fp32) and its static settings. ``remat`` and the physique ``pallas``
-    flag select nothing here: the port keeps every activation and always
-    runs its kernels on the card. ``per_camera_bn`` gives the detector's and
-    the physique net's BatchNorms one group of train statistics per
-    camera."""
+    fp32) and its static settings. ``remat`` is read as the JAX package
+    reads it (absent: True, ``full``; models/composed.py:_remat_mode): its
+    mode goes into the spec, and ``decode`` recomputes the detector's
+    decode. The physique ``pallas`` flag selects nothing here: the port
+    always runs its kernels on the card. ``per_camera_bn`` gives the
+    detector's and the physique net's BatchNorms one group of train
+    statistics per camera."""
     mp = config["model_params"]
+    remat_cfg = mp.get("remat", True)
     bn_groups = (len(mp.get("cam_id_list", [0]))
                  if mp.get("per_camera_bn", False) else 1)
     det_params = dict(mp["detector_params"])
     if bn_groups > 1:
         det_params["bn_groups"] = bn_groups
-    detector = build_detector(det_params, dtype, train=True)
+    detector = build_detector(det_params, dtype, train=True,
+                              remat_decode=remat_cfg == "decode")
 
     discriminator = None
     if "smpl_disc_params" in mp:

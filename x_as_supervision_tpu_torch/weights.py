@@ -15,7 +15,8 @@ tools/convert_torch_resnet.py). The port's keys are torchvision's plus
 Conversions: conv kernels HWIO -> OIHW; a flax ConvTranspose kernel is the
 torch ConvTranspose2d(k4, s2, p1) weight spatially flipped and transposed, so
 its inverse is a flip, then a permute to (Cin, Cout, kh, kw); a flax Dense
-kernel (in, out) is a Linear weight (out, in) transposed.
+kernel (in, out) is a Linear weight (out, in) transposed (so is the
+AvgPoolHead's ``Dense_0``, the port's ``fc``).
 
 The physique net's flax tree is ``Conv_i`` (kernel, bias) and
 ``_BN_i/BatchNorm_0``; the port's is ``convs.i`` and ``bns.i``. The
@@ -142,6 +143,14 @@ def _dense(sd: dict, prefix: str, p: dict) -> None:
     sd[prefix + ".weight"] = _t(np.asarray(p["kernel"]).T)
     if "bias" in p:
         sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def avg_pool_head_state_dict(params: dict) -> dict:
+    """JAX AvgPoolHead params (``Dense_0``) -> the port's AvgPoolHead
+    state_dict (``fc``)."""
+    sd: dict = {}
+    _dense(sd, "fc", params["Dense_0"])
+    return sd
 
 
 def discriminator_state_dict(params: dict) -> dict:
