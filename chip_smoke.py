@@ -13,7 +13,8 @@ under each of the JAX package's five remat modes.
     python3 chip_smoke.py        # from the repository root; needs one card
 
 Phases, each of which fails the run (nonzero exit, no result line), in
-the order they run but for phase 17, which runs after phase 6. The
+the order they run but for phase 17, which runs after phase 6, and phase
+18, which runs after phase 13. The
 launches per train step that a phase holds are
 x_as_supervision_tpu_torch/checks.py:train_launches of the config it
 drives, under that config's remat mode: the flagship config's is ``none``
@@ -119,9 +120,7 @@ flagship step has 2 + 2 and 14.
    slice of a (128, C, H, W) channels-last batch at 256@16^2 and 512@8^2,
    fp32 and bf16, against its plain version with the kernel phase's
    bounds, and a grouped Bottleneck (4 launches) against the plain grouped
-   path. The percam step and a control with pooled statistics each
-   profiled over one more step. One fused fp32 step of phase 7's reduced
-   config at batch 4 (per camera the images of phase 7's pooled
+   path. One fused fp32 step of phase 7's reduced config at batch 4 (per camera the images of phase 7's pooled
    statistics) with per_camera_bn, use_aug and res_gcn (use_bn), card
    against CPU with phase 7's bounds; both sides take the same rotation
    uniforms, drawn on the CPU from a seeded generator and passed to
@@ -174,8 +173,9 @@ flagship step has 2 + 2 and 14.
    NCCL; the rank runs this file's ``dp-rank`` wrapper, which calls the
    CLI's main and records its launch counts and collectives) trains the
    flagship config (4 cameras x 32, bf16, 4 steps) to 00000_ckpt with the
-   launches per step of phase 6; the eval CLI under torchrun scores it with
-   --reduce_hosts, the launches per batch of phase 8. (b) Two ranks on the
+   launches per step of phase 6 and the same all-reduces every step (the
+   eval CLI's --reduce_hosts runs in tests/test_torch_parallel_eval.py,
+   on the CPU: the script's time limit). (b) Two ranks on the
    one card over gloo (NCCL refuses two ranks on one device; gloo
    all-reduces and broadcasts CUDA tensors; whether its CUDA all-gather
    runs is recorded): the fp32 flagship config (TF32 off, phase 7's
@@ -193,14 +193,9 @@ flagship step has 2 + 2 and 14.
    each rank's half summed over the ranks within 1e-5 of its stats on the
    whole batch. Before it, the synced BatchNorm's CUDA path (PyTorch's
    fused BatchNorm kernels) against its plain version on the CPU in a
-   group of one, fp32 and bf16, pooled and per camera. (c) The cost: one
-   rank under torchrun,
-   the bf16 flagship step with its collectives against the same step with
-   no process group seen, by CUDA events in turns (plain, dp, dp, plain, 3
-   steps each), peak memory, the launches of the dp steps (phase 6's), the
-   collectives' calls and bytes per step (parallel/collectives.py:COUNTS)
-   and one profiled step of each (device time by kernel, busy share, the
-   NCCL kernels).
+   group of one, fp32 and bf16, pooled and per camera. The one-rank
+   step's cost against the step with no group seen is phase 18's
+   scaling_projection.
 
 14. tp: tensor parallelism (parallel/tp.py), two model ranks on the one
    card over gloo at (data 1, model 2), the flagship width at 4 cameras x
@@ -210,8 +205,9 @@ flagship step has 2 + 2 and 14.
    cuDNN's time: the link at 256 -> 128 on 16^2 and 512 -> 256 on 8^2
    (B = 64, bf16 on wgmma and fp32), the physique's 32 -> 16 conv at 256^2
    (the CUDA-core route). (b) Two ranks (fp32, TF32 off, phase 13's
-   conditioning and cuDNN's deterministic algorithms) from phase 13's
-   one-process reference state on its batch: the generator's gradients,
+   conditioning and cuDNN's deterministic algorithms) at 4 cameras x 4
+   (TP_PAIR_BATCH) from a one-process reference made as phase 13's is:
+   the generator's gradients,
    gathered, against the one process on the same code path within 1e-2
    or twice that path's rounding floor, whichever is larger; one train
    step's losses 1e-4 relative; rank 1's replicated gradients and running
@@ -219,17 +215,17 @@ flagship step has 2 + 2 and 14.
    (tp.replica_drift) within that same bound of each tensor's largest
    entry; the gathered weights after the step within Adam's step bound of
    the one process's (every weight within 2 lr, at most 1e-2 of them
-   more than 0.1 lr apart). (c) The
-   train CLI under ``torchrun --nproc_per_node 2`` with
-   ``model_parallelism: 2`` in the config (bf16, synthetic, 4 steps to
-   00000_ckpt; the ranks pick gloo themselves): per rank and step decode
-   2 + 2, link 14 on wgmma at the shard's Cout, conv3x3 10 on tensor cores
-   and 8 on CUDA cores; the checkpoint scored by the eval CLI in one
-   process (phase 8's launches per batch); then two ranks under torchrun
-   timing the tensor-parallel step against the one-process step at the
-   same 4 x 16, by CUDA events in turns (plain on rank 0 alone, tp,
-   plain; one step each after a warm-up of each), with each rank's peak
-   memory, launches and collectives (calls and MB by group) per step.
+   more than 0.1 lr apart); the state after the step saved by
+   train/checkpoint.py:save_checkpoint (the shards gathered, rank 0
+   writing) and scored by the eval CLI in one process (phase 8's launches
+   per batch). (c) The train CLI under ``torchrun --nproc_per_node 2``
+   with ``model_parallelism: 2`` in the config (bf16, synthetic, 4 x 16,
+   ``--steps 2``, so no checkpoint; the ranks pick gloo themselves): per
+   rank and step decode 2 + 2, link 14 on wgmma at the shard's Cout,
+   conv3x3 10 on tensor cores and 8 on CUDA cores. The pair's batch and
+   the CLI's steps are cut for the script's time limit (a step moves some
+   200 MB of gloo traffic an image), and the tensor-parallel step's cost
+   against one process is not timed.
 
 15. campaign, run after phase 12 and before phase 13: the self-rendered
    campaign through the port's offline tools and CLIs. (a) The render CLI
@@ -268,12 +264,9 @@ flagship step has 2 + 2 and 14.
    (ResNet-50, 256^2, D = 64, 3 hypotheses, 4 x 32, bf16, synthetic, seed
    0) for 2 epochs of 4 steps with a checkpoint each: one run directory,
    the launches per step of phase 6, the event file's writes polled (its
-   longest silence, from the start); ``launch_eval.sh`` on the last
-   checkpoint: phase 8's launches per batch, eval_result.txt finite. (b)
-   ``launch_train.sh local 2``: torchrun's two ranks on the one card over
-   gloo, phase 13's 4 x 16 fp32, one epoch (4 steps: the synthetic
-   fixture's 64 samples), the launches per step on each rank, one run
-   directory, one save announced and rank 0's step lines only. (c)
+   longest silence, from the start). (``launch_eval.sh`` and
+   ``launch_train.sh local 2`` run in tests/test_torch_launchers.py, on
+   the CPU: the script's time limit.) (b)
    ``train_resumable.sh`` on (a)'s config with XAS_GRACE_SECS=0 and
    XAS_STALL_SECS (a)'s longest silence plus 10 s,
    its trainer stopped (SIGSTOP) once 00000_ckpt/state.pt exists: the
@@ -306,11 +299,33 @@ flagship step has 2 + 2 and 14.
    Adam and the running statistics bitwise or within twice the distance
    of two ``none`` runs; num_batches_tracked equal. (c) full at 4 cameras x
    64 (the batch remat exists for), one warm-up and one timed step: its
-   peak under the card's memory. (d) The flagship config written without
-   its remat key through the train CLI (--synthetic, one epoch of 4
-   steps): the launches per step of ``full``. (e) models/resnet.py's
+   peak under the card's memory (phase 15's CLIs run configs without a
+   remat key, at full's launches). (d) models/resnet.py's
    AvgPoolHead at (32, 2048, 8, 8) -> 54, fp32 (TF32 off) and bf16, card
    against CPU on the same weights (1e-5 and 1e-2 of the output's scale).
+
+18. tools, run after phase 13 and before phase 14: the port's measurement
+   tools
+   (x_as_supervision_tpu_torch/tools/), each through its main on the card
+   at full width. bench_conv_bn: the link at 128@32^2, 256@16^2 and
+   512@8^2 (B = 128, bf16, wgmma) against its plain chain and F.conv2d,
+   each error within phase 3's bf16 bound, one launch a call, the 256@16^2
+   time within 15 % of phase 3's at that shape; its --check_batches sweep
+   (2, 8, 16, 128 on 16x256). bench_serve with HM36_Multi_SurS2 at batches
+   1, 8 and 32: one decode and seven links a forward, the batch-32 rate
+   beside phase 4's (not held: the host moves serving).
+   bench_resnet_control: ResNet-50, average pool and Linear(1000) at
+   256^2, B = 128, bf16, 2 warm-up and 3 timed steps: a finite loss, the
+   link 7 times a step, step ms, img/s and MFU against the card's bf16
+   peak (FLOPs from the layer shapes). bench_loader on an H36M fixture of
+   phase 10's size (3 batches of 32, one a warm-up) with the train phase's
+   img/s as the device's demand. trace_opclass on the trace the train CLI
+   writes (the flagship config, synthetic, 3 steps, train_params.profile
+   over steps 1 and 2): the four kernels at checks.train_launches' counts
+   a step. scaling_projection under torchrun on one NCCL rank at the
+   flagship config (4 cameras x 32): its all-reduce calls and bytes a step
+   those of phase 13's train CLI, the flagship launches a step in the
+   group and with no group seen.
 
 ``python3 chip_smoke.py xl-render [OUT]`` renders the XL campaign
 (scripts/render_campaign_xl.sh's arguments) with the port on the card
@@ -324,8 +339,9 @@ of the train CLI under torchrun: ``dp_launches``, per step of each rank
 of the tensor-parallel train CLI: ``tp_launches``, per S1 step, S2 step
 and eval batch of the campaign: ``campaign_launches``, and per step and
 eval batch of the launched CLIs and per step of each launched rank:
-``launch_launches``, and per flagship step under each remat mode:
-``remat_launches``), and
+``launch_launches``, per flagship step under each remat mode:
+``remat_launches``, and per serving forward, control step and
+bench_conv_bn call of phase 18: ``tools_launches``), and
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -340,6 +356,8 @@ import tempfile
 import time
 
 import numpy as np
+
+_T0 = time.perf_counter()
 
 SEED = 0
 SERVE_IMAGES = 64
@@ -488,17 +506,21 @@ XL_MANIFEST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # data parallelism: two gloo ranks on the one card at this global batch per
 # camera (4 cameras x 16 = 64 fp32 images, 32 per rank: the bf16 step's
 # 41.15 GB at 128 images is about 20 GB per 32 fp32 images, so the two
-# ranks and the card's other process fit); the one-rank NCCL step's cost in
-# turns of this many steps
+# ranks and the card's other process fit)
 DP_PAIR_BATCH = 16
-DP_COST_STEPS = 3
 # tensor parallelism: two model ranks on the one card (data 1), at the dp
 # pair's global batch per camera (every image on both ranks); the link at a
 # rank's Cout shard, (Cin, Cout / 2, H = W); the physique conv the split
 # sends to the CUDA cores, (Cin, Cout / 2, side, stride)
 TP_MODEL = 2
 TP_BATCH = DP_PAIR_BATCH
-TP_COST_STEPS = 1
+# the pair's batch per camera, against a one-process reference of its own:
+# a step moves some 200 MB of gloo traffic an image (fp32 twice that), and
+# the script has a time limit
+TP_PAIR_BATCH = 4
+# the train CLI's steps (--steps: the synthetic fixture holds at least 4
+# batches, some 15 s of gloo traffic each at 4 x 16)
+TP_CLI_STEPS = 2
 TP_LINK_SHAPES = ((256, 128, 16), (512, 256, 8))
 TP_CONV = (32, 16, 256, 1)
 # per rank and step: the flagship step's launches, the physique convs on
@@ -510,11 +532,22 @@ TP_PATH_LAUNCHES = {
     "conv3x3": {"launches_tc": 10, "launches_cuda_core": 8},
 }
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
-# phase 16: the launch scripts; (c)'s run: epochs of the flagship's 4 steps,
+# phase 16: the launch scripts; (b)'s run: epochs of the flagship's 4 steps,
 # the driver's poll
 LAUNCH_SCRIPTS = os.path.join(REPO_ROOT, "scripts", "torch")
 RESUMABLE_EPOCHS = 2
 RESUMABLE_POLL_S = 1
+
+# phase 18, tools: the port's measurement tools (x_as_supervision_tpu_torch/
+# tools/) at full width. bench_conv_bn's link time at (128, 256, 16, 16)
+# within this share of the kernel phase's; bench_serve on this config; the
+# control's warm-up and timed steps; the train CLI run profiled over steps
+# 1 and 2 (of 3) for trace_opclass
+TOOLS_LINK_MS_SHARE = 0.15
+SERVE_CONFIG = os.path.join(CONFIG_DIR, "HM36_Multi_SurS2.json")
+TOOLS_CONTROL_STEPS = ("2", "3")
+TOOLS_PROFILE = {"start_step": 1, "num_steps": 1}
+TOOLS_PROFILED_STEPS = 2
 
 KERNELS = {
     "integral_marginals": dict(
@@ -542,18 +575,26 @@ def check(cond: bool, what: str) -> None:
 
 
 def emit(**record) -> None:
-    print(json.dumps(record), flush=True)
+    """One JSON line, with the seconds since this process started."""
+    print(json.dumps(dict(record, t_s=time.perf_counter() - _T0)),
+          flush=True)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms over `iters` back-to-back runs."""
+    """Mean device time of fn() in ms over `iters` back-to-back runs, the
+    stream held (tools/measure.py:HOLD_CYCLES) while the host queues them:
+    a short kernel behind a Python wrapper is timed at the device's pace,
+    not at the host's."""
     import torch
+
+    from x_as_supervision_tpu_torch.tools.measure import HOLD_CYCLES
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -1110,14 +1151,9 @@ def _layout_transposes(prof) -> dict:
 
 def _counters() -> dict:
     """The launch-counting wrappers of the four kernels, by kernel name."""
-    from x_as_supervision_tpu_torch.ops.conv3x3 import conv3x3_kernel
-    from x_as_supervision_tpu_torch.ops.conv_bn import fused_bn_relu_conv
-    from x_as_supervision_tpu_torch.ops.integral_kernel import (
-        integral_marginals, marginals_backward)
+    from x_as_supervision_tpu_torch.tools.measure import kernel_counters
 
-    return {"integral_marginals": integral_marginals,
-            "integral_marginals_bwd": marginals_backward,
-            "conv_bn_link": fused_bn_relu_conv, "conv3x3": conv3x3_kernel}
+    return kernel_counters()
 
 
 def _gan(config: dict, dtype, device: str, seed: int):
@@ -1135,6 +1171,29 @@ def _gan(config: dict, dtype, device: str, seed: int):
     return spec, TrainState(spec, config["train_params"], steps_per_epoch=10)
 
 
+_SAMPLES: dict = {}
+
+
+def _synthetic(num_samples: int, cam_id_list, patch_size: int = PATCH,
+               seed: int = SEED):
+    """SyntheticPoseDataset(num_samples, cam_id_list, patch_size, seed)
+    whose samples this process renders once: a sample depends on its
+    index, the cameras, the patch and the seed alone, and the in-process
+    phases step many models on the same first batches (some 1.5 s of host
+    time a batch of 32)."""
+    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
+
+    class Cached(SyntheticPoseDataset):
+        def sample(self, idx: int) -> dict:
+            key = (tuple(cam_id_list), patch_size, seed, idx)
+            if key not in _SAMPLES:
+                _SAMPLES[key] = super().sample(idx)
+            return _SAMPLES[key]
+
+    return Cached(num_samples=num_samples, cam_id_list=cam_id_list,
+                  patch_size=patch_size, seed=seed)
+
+
 def _named_params(state) -> dict:
     return dict(zip(state.gen_names + ["discriminator." + n
                                        for n in state.disc_names],
@@ -1147,7 +1206,6 @@ def phase_train(top: int = 15) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
     from x_as_supervision_tpu_torch.train.factory import flagship_config
     from x_as_supervision_tpu_torch.train.state import train_step
     from x_as_supervision_tpu_torch.train.trainer import (
@@ -1158,8 +1216,7 @@ def phase_train(top: int = 15) -> dict:
     check(TRAIN_BATCH * len(cams) == TRAIN_IMAGES, "train batch shape")
     t0 = time.perf_counter()
     spec, state = _gan(cfg, torch.bfloat16, "cuda", SEED)
-    ds = SyntheticPoseDataset(num_samples=TRAIN_BATCH * (TRAIN_STEPS + 2),
-                              cam_id_list=cams, patch_size=PATCH, seed=SEED)
+    ds = _synthetic(TRAIN_BATCH * (TRAIN_STEPS + 2), cams)
     host_batches = [ds.batch(i * TRAIN_BATCH, TRAIN_BATCH)
                     for i in range(TRAIN_STEPS + 2)]
     batches = [to_device(b, "cuda") for b in host_batches]
@@ -1533,45 +1590,6 @@ def _remat_parity() -> dict:
     return out
 
 
-def _remat_cli() -> dict:
-    """The flagship config written without its remat key through the train
-    CLI (--synthetic, one epoch of 4 steps): the launches per step those
-    of ``full``, as the JAX package reads an absent key."""
-    import tempfile
-
-    import torch
-
-    from x_as_supervision_tpu_torch.train.__main__ import main as train_main
-
-    with tempfile.TemporaryDirectory() as root:
-        cfg = _remat_config("full")
-        del cfg["model_params"]["remat"]
-        cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
-        cfg_path = os.path.join(root, "flagship_no_remat_key.json")
-        with open(cfg_path, "w") as f:
-            json.dump(cfg, f)
-        _reset_counts()
-        t0 = time.perf_counter()
-        trainer = train_main(["--config", cfg_path, "--synthetic", "--seed",
-                              str(SEED), "--log_dir",
-                              os.path.join(root, "log")])
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        steps = TRAIN_IMAGES // TRAIN_BATCH
-        check(trainer.state.step == steps and trainer.spec.remat_mode
-              == "full", f"remat train CLI: {trainer.state.step} steps, "
-              f"mode {trainer.spec.remat_mode}")
-        launches, paths = _check_train_launches(steps, "remat train CLI",
-                                                cfg, "full")
-        check(trainer.history and all(
-            np.isfinite(list(h.values())).all() for h in trainer.history),
-            f"remat train CLI: losses {trainer.history}")
-        del trainer
-        torch.cuda.empty_cache()
-    return dict(train_cli_s=train_s, mode="full (key absent)",
-                launches_per_step=launches, path_launches_per_step=paths)
-
-
 def _avg_pool_head_cases() -> list[dict]:
     """AvgPoolHead at (32, 2048, 8, 8) -> 54 on the card against the CPU
     on the same weights and input, fp32 (TF32 off) and bf16."""
@@ -1607,13 +1625,11 @@ def phase_remat(card: str) -> dict:
     """The remat modes on the card (see the module docstring, phase 17)."""
     import torch
 
-    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
     from x_as_supervision_tpu_torch.train.trainer import to_device
 
     t0 = time.perf_counter()
     cams = _remat_config("none")["dataset_params"]["cam_id_list"]
-    ds = SyntheticPoseDataset(num_samples=TRAIN_BATCH * (TRAIN_STEPS + 1),
-                              cam_id_list=cams, patch_size=PATCH, seed=SEED)
+    ds = _synthetic(TRAIN_BATCH * (TRAIN_STEPS + 1), cams)
     batches = [to_device(ds.batch(i * TRAIN_BATCH, TRAIN_BATCH), "cuda")
                for i in range(TRAIN_STEPS + 1)]
     modes = {}
@@ -1624,8 +1640,7 @@ def phase_remat(card: str) -> dict:
     parity = _remat_parity()
     # the batch remat exists for: 4 x 64 under full
     torch.cuda.empty_cache()
-    ds = SyntheticPoseDataset(num_samples=REMAT_BIG_BATCH * REMAT_BIG_STEPS,
-                              cam_id_list=cams, patch_size=PATCH, seed=SEED)
+    ds = _synthetic(REMAT_BIG_BATCH * REMAT_BIG_STEPS, cams)
     batches = [to_device(ds.batch(i * REMAT_BIG_BATCH, REMAT_BIG_BATCH),
                          "cuda") for i in range(REMAT_BIG_STEPS)]
     big = _remat_steps("full", batches, REMAT_BIG_STEPS - 1, REMAT_BIG_BATCH)
@@ -1636,8 +1651,6 @@ def phase_remat(card: str) -> dict:
           f"{big['peak_memory_gb']} GB of {memory_gb}")
     emit(phase="remat_big_batch", card=card, card_memory_gb=memory_gb,
          **big)
-    cli = _remat_cli()
-    emit(phase="remat_cli", **cli)
     head = _avg_pool_head_cases()
     emit(phase="avg_pool_head", cases=head)
     record = dict(phase="remat_summary", card=card,
@@ -1650,7 +1663,7 @@ def phase_remat(card: str) -> dict:
                   big_batch_peak_gb=big["peak_memory_gb"],
                   big_batch_step_ms=big["mean_step_ms"])
     emit(**record)
-    return dict(record, modes=modes, parity=parity, big_batch=big, cli=cli,
+    return dict(record, modes=modes, parity=parity, big_batch=big,
                 avg_pool_head=head)
 
 
@@ -2571,16 +2584,13 @@ def _percam_config() -> dict:
     return cfg
 
 
-def _variant_steps(name: str, disc_updates: dict, per_camera_bn: bool = True,
-                   profile: bool = False) -> dict:
+def _variant_steps(name: str, disc_updates: dict,
+                   per_camera_bn: bool = True) -> dict:
     """One warm-up and VARIANT_STEPS timed steps of the percam config with
     `disc_updates` in its smpl_disc_params, bf16 at the flagship shape
-    (`per_camera_bn` False: the control with pooled statistics); with
-    `profile`, torch.profiler over one more step."""
+    (`per_camera_bn` False: the control with pooled statistics)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile as profiler
 
-    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
     from x_as_supervision_tpu_torch.train.state import train_step
     from x_as_supervision_tpu_torch.train.trainer import (
         step_generator, to_device)
@@ -2590,10 +2600,9 @@ def _variant_steps(name: str, disc_updates: dict, per_camera_bn: bool = True,
     cfg["model_params"]["per_camera_bn"] = per_camera_bn
     cams = cfg["dataset_params"]["cam_id_list"]
     spec, state = _gan(cfg, torch.bfloat16, "cuda", SEED)
-    ds = SyntheticPoseDataset(num_samples=TRAIN_BATCH * (VARIANT_STEPS + 2),
-                              cam_id_list=cams, patch_size=PATCH, seed=SEED)
+    ds = _synthetic(TRAIN_BATCH * (VARIANT_STEPS + 1), cams)
     batches = [to_device(ds.batch(i * TRAIN_BATCH, TRAIN_BATCH), "cuda")
-               for i in range(VARIANT_STEPS + 2)]
+               for i in range(VARIANT_STEPS + 1)]
 
     def step(i):
         return train_step(state, batches[i], step_generator(SEED, i, "cuda"))
@@ -2626,19 +2635,6 @@ def _variant_steps(name: str, disc_updates: dict, per_camera_bn: bool = True,
         losses=losses, launches_per_step=launches,
         path_launches_per_step=paths)
     emit(phase="variant_steps", **record)
-    if profile:
-        ev0, ev1 = (torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-        with profiler(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            ev0.record()
-            step(VARIANT_STEPS + 1)
-            ev1.record()
-            torch.cuda.synchronize()
-        window_us = ev0.elapsed_time(ev1) * 1e3
-        record["profile"] = dict(window_us=window_us,
-                                 **_profile_rows(prof, window_us, 15))
-        emit(phase="variant_profile", name=name, **record["profile"])
     del spec, state, batches, history
     torch.cuda.empty_cache()
     return record
@@ -2871,11 +2867,10 @@ def phase_variants() -> dict:
     docstring, phase 11)."""
     import torch
 
-    runs = [_variant_steps(name, updates, profile=name == "percam")
+    runs = [_variant_steps(name, updates)
             for name, updates in VARIANTS.items()]
     # the control: the same model with pooled statistics (14 links a step)
-    control = _variant_steps("percam_pooled", {}, per_camera_bn=False,
-                             profile=True)
+    control = _variant_steps("percam_pooled", {}, per_camera_bn=False)
     links = []
     for dtype in (torch.float32, torch.bfloat16):
         set_tf32(False)
@@ -3524,155 +3519,29 @@ def _dp_rank_counts() -> dict:
                        for name, attrs in PATH_COUNTERS.items()})
 
 
-def _dp_rank_cli(out: str, which: str, args: list) -> None:
-    """A rank of the train or eval CLI under torchrun: the CLI's main on
-    `args`, its launch counts (set to 0 just before) and the collectives
-    it called."""
+def _dp_rank_cli(out: str, args: list) -> None:
+    """A rank of the train CLI under torchrun: the CLI's main on `args`,
+    its launch counts (set to 0 just before) and the collectives it
+    called."""
     import torch
 
     from x_as_supervision_tpu_torch.parallel import collectives as C
     from x_as_supervision_tpu_torch.parallel import mesh
+    from x_as_supervision_tpu_torch.train.__main__ import main
 
     _reset_counts()
     C.COUNTS.reset()
-    train = which.endswith("train")
-    if train:
-        from x_as_supervision_tpu_torch.train.__main__ import main
-    else:
-        from x_as_supervision_tpu_torch.eval.__main__ import main
     result = main(args)
     torch.cuda.synchronize()
     record = dict(_dp_rank_counts(), collectives=C.COUNTS.snapshot(),
                   world=mesh.process_count(), rank=mesh.process_index(),
                   grid=[mesh.data_size(), mesh.model_size()],
                   backend=str(torch.distributed.get_backend()),
-                  device=str(torch.cuda.current_device()))
-    if train:
-        record.update(steps=result.state.step,
-                      history=result.history,
-                      peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    else:
-        record.update(batches=len(result.my_batches),
-                      num_batches=result.num_batches,
-                      result_path=result.result_path,
-                      ambiguity_ratio=result.last_ambiguity_ratio)
+                  device=str(torch.cuda.current_device()),
+                  steps=result.state.step, history=result.history,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     with open(_rank_out(out), "w") as f:
         json.dump(record, f)
-
-
-def _dp_rank_cost(out: str) -> None:
-    """One rank under torchrun (NCCL, a group of one): the flagship bf16
-    step on its data-parallel path (the synced statistics and losses, the
-    gradient all-reduce) against the same step without a process group,
-    by CUDA events in turns (plain, dp, dp, plain; the plain turns see no
-    group), with the launches and collectives of a dp step and the NCCL
-    kernels' device time in a profiled dp step."""
-    from unittest import mock
-
-    import torch
-    import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
-
-    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
-    from x_as_supervision_tpu_torch.parallel import collectives as C
-    from x_as_supervision_tpu_torch.parallel import mesh
-    from x_as_supervision_tpu_torch.train.factory import flagship_config
-    from x_as_supervision_tpu_torch.train.state import train_step
-    from x_as_supervision_tpu_torch.train.trainer import (
-        step_generator, to_device)
-
-    mesh.initialize_multihost()
-    device = mesh.rank_device()
-    cfg = flagship_config()
-    cams = cfg["dataset_params"]["cam_id_list"]
-    spec, state = _gan(cfg, torch.bfloat16, device, SEED)
-    ds = SyntheticPoseDataset(num_samples=TRAIN_BATCH * 2, cam_id_list=cams,
-                              patch_size=PATCH, seed=SEED)
-    batches = [to_device(ds.batch(i * TRAIN_BATCH, TRAIN_BATCH), device)
-               for i in range(2)]
-
-    def step(i):
-        return train_step(state, batches[i % 2],
-                          step_generator(SEED, i, device))
-
-    def plain():
-        return mock.patch.object(dist, "is_initialized", lambda: False)
-
-    with plain():
-        step(0)
-    step(1)  # warm-up of each path
-    torch.cuda.synchronize()
-    times = {"plain": [], "dp": []}
-    peak = {}
-    counters = _counters()
-    launches = dict.fromkeys(counters, 0)
-    dp_steps = 0
-    for kind in ("plain", "dp", "dp", "plain"):
-        torch.cuda.reset_peak_memory_stats()
-        before = {name: fn.launches for name, fn in counters.items()}
-        for i in range(DP_COST_STEPS):
-            ev0, ev1 = (torch.cuda.Event(enable_timing=True),
-                        torch.cuda.Event(enable_timing=True))
-            if kind == "plain":
-                with plain():
-                    ev0.record()
-                    step(i)
-                    ev1.record()
-            else:
-                C.COUNTS.reset()
-                ev0.record()
-                step(i)
-                ev1.record()
-                dp_steps += 1
-            torch.cuda.synchronize()
-            times[kind].append(ev0.elapsed_time(ev1))
-        peak[kind] = torch.cuda.max_memory_allocated() / 1e9
-        if kind == "dp":
-            for name, fn in counters.items():
-                launches[name] += fn.launches - before[name]
-    per_step = C.COUNTS.snapshot()  # the last dp step's
-    profiles = {}
-    for kind in ("plain", "dp"):
-        ev0, ev1 = (torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            if kind == "plain":
-                with plain():
-                    ev0.record()
-                    step(0)
-                    ev1.record()
-            else:
-                ev0.record()
-                step(0)
-                ev1.record()
-            torch.cuda.synchronize()
-        window_us = ev0.elapsed_time(ev1) * 1e3
-        profiles[kind] = dict(window_us=window_us,
-                              nccl_kernels=_profile_calls(prof, "nccl"),
-                              **_profile_rows(prof, window_us, 12))
-    with open(_rank_out(out), "w") as f:
-        json.dump(dict(
-            step_ms=times, peak_memory_gb=peak, dp_steps=dp_steps,
-            plain_steps=2 * DP_COST_STEPS,
-            launches=launches, collectives_per_step=per_step,
-            profiles=profiles, backend=str(dist.get_backend()),
-            world=mesh.process_count()), f)
-
-
-def _profile_calls(prof, needle: str) -> dict:
-    """Calls and device ms of the CUDA kernels whose name holds `needle`."""
-    import torch
-
-    calls, us = 0, 0.0
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and needle in e.key.lower()):
-            calls += e.count
-            dev = getattr(e, "self_device_time_total", None)
-            us += dev if dev is not None else getattr(
-                e, "self_cuda_time_total", 0.0)
-    return dict(calls=calls, ms=us / 1e3)
 
 
 def _synced_bn_cases() -> list[dict]:
@@ -3740,11 +3609,11 @@ def _synced_bn_cases() -> list[dict]:
     return cases
 
 
-def _dp_pair_config() -> dict:
+def _dp_pair_config(batch: int = DP_PAIR_BATCH) -> dict:
     from x_as_supervision_tpu_torch.train.factory import flagship_config
 
     cfg = flagship_config()
-    cfg["train_params"]["batch_size"] = DP_PAIR_BATCH
+    cfg["train_params"]["batch_size"] = batch
     return cfg
 
 
@@ -3790,11 +3659,13 @@ def _link_inputs(batch: int):
     return x.contiguous(memory_format=torch.channels_last), w, scale, shift
 
 
-def _dp_pair_reference(root: str) -> dict:
-    """The one-process side of the pair check, at the pair's global batch:
-    the conditioned fp32 state written for the ranks, the generator's
-    gradients, one train step's losses and parameters, and the link's
-    stats on the whole batch."""
+def _dp_pair_reference(root: str, batch_size: int = DP_PAIR_BATCH,
+                       tag: str = "pair") -> dict:
+    """The one-process side of a pair check, at the pair's global batch per
+    camera: the conditioned fp32 state written for the ranks, the
+    generator's gradients, one train step's losses and parameters, and the
+    link's stats on the whole batch (<root>/<tag>_batch.npz, _ckpt,
+    _ref.pt)."""
     import torch
 
     from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
@@ -3804,18 +3675,18 @@ def _dp_pair_reference(root: str) -> dict:
     from x_as_supervision_tpu_torch.train.trainer import (
         step_generator, to_device)
 
-    cfg = _dp_pair_config()
+    cfg = _dp_pair_config(batch_size)
     cams = cfg["dataset_params"]["cam_id_list"]
     spec, state = _gan(cfg, torch.float32, "cuda", SEED)
     _dp_condition(spec)
-    batch = SyntheticPoseDataset(num_samples=DP_PAIR_BATCH, cam_id_list=cams,
+    batch = SyntheticPoseDataset(num_samples=batch_size, cam_id_list=cams,
                                  patch_size=PATCH, seed=SEED).batch(
-                                     0, DP_PAIR_BATCH)
-    np.savez(os.path.join(root, "pair_batch.npz"),
+                                     0, batch_size)
+    np.savez(os.path.join(root, f"{tag}_batch.npz"),
              **{k: v for k, v in batch.items() if isinstance(v, np.ndarray)})
-    os.makedirs(os.path.join(root, "pair_ckpt"))
+    os.makedirs(os.path.join(root, f"{tag}_ckpt"))
     torch.save(ckpt.state_dict(state),
-               os.path.join(root, "pair_ckpt", ckpt.STATE_FILE))
+               os.path.join(root, f"{tag}_ckpt", ckpt.STATE_FILE))
     dev = to_device(batch, "cuda")
     set_tf32(False)
     set_cudnn_deterministic(True)
@@ -3827,7 +3698,7 @@ def _dp_pair_reference(root: str) -> dict:
         metrics = train_step(state, dev, step_generator(SEED, 1, "cuda"))
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 1e9
-        x, w, scale, shift = _link_inputs(DP_PAIR_BATCH * len(cams))
+        x, w, scale, shift = _link_inputs(batch_size * len(cams))
         _, stats = fused_bn_relu_conv(x, w, scale, shift)
     finally:
         set_tf32(True)
@@ -3837,7 +3708,7 @@ def _dp_pair_reference(root: str) -> dict:
                     params={k: p.detach().cpu() for k, p in
                             _named_params(state).items()},
                     stats=stats.cpu()),
-               os.path.join(root, "pair_ref.pt"))
+               os.path.join(root, f"{tag}_ref.pt"))
     del spec, state, dev, grads, group_of_one
     torch.cuda.empty_cache()
     return dict(peak_memory_gb=peak,
@@ -4057,13 +3928,11 @@ def _dp_pair(root: str) -> dict:
 
 def phase_dp(card: str, root: str) -> dict:
     """Data parallelism on the card (see the module docstring): (a) the
-    train and eval CLIs under torchrun, one rank over NCCL, at the flagship
-    width; (b) two gloo ranks on the one card against one process; (c) the
-    one-rank step's cost against the step without a process group. Its
-    files go under `root`, where phase_tp finds the pair's reference."""
+    train CLI under torchrun, one rank over NCCL, at the flagship width;
+    (b) two gloo ranks on the one card against one process. Its files go
+    under `root`."""
     import torch
 
-    from x_as_supervision_tpu_torch.checks import result_lines
     from x_as_supervision_tpu_torch.train.factory import flagship_config
 
     torch.cuda.empty_cache()
@@ -4098,29 +3967,13 @@ def phase_dp(card: str, root: str) -> dict:
     path = os.path.join(log_dir, run, "00000_ckpt")
     check(os.path.exists(os.path.join(path, "state.pt")),
           "dp train CLI: no checkpoint")
-    (ev,) = _torchrun(root, "eval", [
-        "--config", cfg_path, "--synthetic", "--checkpoint", path,
-        "--multi_hypo", "best", "--reduce_hosts"], timeout=600)
-    nb = ev["batches"]
-    check(nb == ev["num_batches"] > 0, f"dp eval CLI: {nb} batches")
-    for name, per_batch in EVAL_LAUNCHES.items():
-        check(ev["launches"][name] == per_batch * nb,
-              f"dp eval CLI: {name} launched {ev['launches'][name]} "
-              f"times in {nb} batches, expected {per_batch} per batch")
-    lines = result_lines(ev["result_path"])
-    check(len(lines) == 15 and all(
-        v is None or np.isfinite(v) for _, v in lines),
-        f"dp eval CLI: eval_result.txt {lines}")
     synced_bn = _synced_bn_cases()
     pair = _dp_pair(root)
-    (cost,) = _torchrun(root, "cost", [], timeout=600)
-    for name, per_step in want.items():
-        got = cost["launches"][name]
-        check(got == per_step * cost["dp_steps"],
-              f"dp cost: {name} launched {got} times in {cost['dp_steps']} "
-              f"dp steps, expected {per_step} per step")
-    mean = {k: sum(v) / len(v) for k, v in cost["step_ms"].items()}
-    ar = cost["collectives_per_step"].get("all_reduce/data", {})
+    # every step makes the same all-reduces (the CLI adds none of its own)
+    ar = train["collectives"].get("all_reduce/data", {"calls": 0, "bytes": 0})
+    check(ar["calls"] > 0 and ar["calls"] % steps == 0
+          and ar["bytes"] % steps == 0,
+          f"dp train CLI: all-reduces {ar} in {steps} steps")
     record = dict(
         phase="dp", card=card,
         train_cli=dict(
@@ -4128,14 +3981,8 @@ def phase_dp(card: str, root: str) -> dict:
             launches_per_step={k: v / steps
                                for k, v in train["launches"].items()},
             collectives=train["collectives"],
+            all_reduce_per_step={k: v // steps for k, v in ar.items()},
             peak_memory_gb=train["peak_memory_gb"]),
-        eval_cli=dict(batches=nb, process_s=ev["process_s"],
-                      launches_per_batch={k: v / nb for k, v in
-                                          ev["launches"].items()},
-                      collectives=ev["collectives"],
-                      ambiguity_ratio=ev["ambiguity_ratio"],
-                      eval_result=[f"{k}: {v}" if v is not None else k
-                                   for k, v in lines]),
         synced_bn_max_rel_err={
             kind: max(max(c["rel_err"].values()) for c in synced_bn
                       if c["dtype"] == kind) for kind in ("fp32", "bf16")},
@@ -4160,14 +4007,7 @@ def phase_dp(card: str, root: str) -> dict:
                                   for r in pair["ranks"]],
                   step_collectives=pair["ranks"][0]["step_collectives"],
                   gloo_cuda_all_gather=pair["ranks"][0][
-                      "gloo_cuda_all_gather"]),
-        cost=dict(step_ms=cost["step_ms"], mean_step_ms=mean,
-                  dp_over_plain=mean["dp"] / mean["plain"],
-                  peak_memory_gb=cost["peak_memory_gb"],
-                  collectives_per_step=cost["collectives_per_step"],
-                  all_reduce_calls_per_step=ar.get("calls", 0),
-                  all_reduce_mb_per_step=ar.get("bytes", 0) / 1e6,
-                  profiles=cost["profiles"]))
+                      "gloo_cuda_all_gather"]))
     emit(**record)
     return record
 
@@ -4200,11 +4040,13 @@ def _tp_kernel_cases() -> list[dict]:
 
 def _tp_rank_pair(rank: int, port: int, root: str) -> None:
     """A rank of the tensor-parallel pair on the one card (gloo, data 1,
-    model 2): phase 13's reference state cut to this rank's shards, the
+    model 2): the reference state cut to this rank's shards, the
     generator's gradients and one train step on the whole batch; each rank
     reads how far its replicated gradients and statistics were from model
     rank 0's before the step's broadcast (tp.replica_drift), rank 0 holds
-    the gathered gradients, losses and parameters to the one process."""
+    the gathered gradients, losses and parameters to the one process; the
+    state after the step is saved as the train CLI saves it
+    (<root>/tp_pair_log/00000_ckpt)."""
     import torch
     import torch.distributed as dist
 
@@ -4219,13 +4061,13 @@ def _tp_rank_pair(rank: int, port: int, root: str) -> None:
     mesh.initialize_multihost(f"localhost:{port}", TP_MODEL, rank,
                               backend="gloo", timeout_s=600)
     mesh.make_grid(TP_MODEL)
-    cfg = _dp_pair_config()
+    cfg = _dp_pair_config(TP_PAIR_BATCH)
     spec, state = _gan(cfg, torch.float32, "cuda", SEED)
-    ckpt.restore_resume(os.path.join(root, "pair_ckpt"), state)
+    ckpt.restore_resume(os.path.join(root, "tp_pair_ckpt"), state)
     tp.shard_state(state)
     dims = state.shard_dims
     # one data index: both model ranks read the whole batch
-    dev = to_device(dict(np.load(os.path.join(root, "pair_batch.npz"))),
+    dev = to_device(dict(np.load(os.path.join(root, "tp_pair_batch.npz"))),
                     "cuda")
     set_tf32(False)
     set_cudnn_deterministic(True)
@@ -4245,6 +4087,8 @@ def _tp_rank_pair(rank: int, port: int, root: str) -> None:
     step_counts = C.COUNTS.snapshot()
     peak = torch.cuda.max_memory_allocated() / 1e9
     whole = tp.gather_state(state, ckpt.state_dict(state))
+    # the state after the step, written as the train CLI writes it
+    ckpt.save_checkpoint(os.path.join(root, "tp_pair_log"), 0, state)
     record = dict(rank=rank, metrics={k: float(v) for k, v in
                                       metrics.items()},
                   replica_drift=drift,
@@ -4252,7 +4096,7 @@ def _tp_rank_pair(rank: int, port: int, root: str) -> None:
                   step_collectives=step_counts, step_s=step_s,
                   peak_memory_gb=peak, backend=str(dist.get_backend()))
     if rank == 0:
-        ref = torch.load(os.path.join(root, "pair_ref.pt"))
+        ref = torch.load(os.path.join(root, "tp_pair_ref.pt"))
         cancelled = {"physique." + n
                      for n in spec.physique.bn_cancelled_biases()}
         # phase 13's measure, against the one process on the same code
@@ -4296,9 +4140,11 @@ def _tp_rank_pair(rank: int, port: int, root: str) -> None:
 
 
 def _tp_pair(root: str) -> list:
-    """Two tensor-parallel ranks on the one card against phase 13's one
-    process (see the module docstring)."""
+    """Two tensor-parallel ranks on the one card against one process at
+    TP_PAIR_BATCH (see the module docstring)."""
     import socket
+
+    ref = _dp_pair_reference(root, TP_PAIR_BATCH, "tp_pair")
 
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -4324,7 +4170,7 @@ def _tp_pair(root: str) -> list:
         with open(os.path.join(root, f"tp_pair_{r}.json")) as f:
             ranks.append(json.load(f))
     r0 = ranks[0]
-    emit(phase="tp_pair", ranks=ranks)
+    emit(phase="tp_pair", ranks=ranks, reference=ref)
     check(max(r0["loss_rel_err"].values()) <= 1e-4,
           f"tp pair: loss rel err {r0['loss_rel_err']}")
     # phase 13's bound: 1e-2, or twice the native one-process path's
@@ -4353,115 +4199,12 @@ def _tp_pair(root: str) -> list:
     return ranks
 
 
-def _tp_rank_cost(out: str) -> None:
-    """Two ranks under torchrun (gloo, model 2): the bf16 flagship step at
-    4 cameras x 16 split over the ranks against the same step whole in one
-    process (rank 0, no process group seen), by CUDA events in turns
-    (plain, tp, plain; rank 1 waits while rank 0 runs plain), with each
-    rank's peak memory, launches, collectives and replica drift
-    (tp.replica_drift, bf16 without cuDNN's deterministic algorithms) per
-    tensor-parallel step."""
-    from unittest import mock
-
-    import torch
-    import torch.distributed as dist
-
-    from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
-    from x_as_supervision_tpu_torch.parallel import collectives as C
-    from x_as_supervision_tpu_torch.parallel import mesh, tp
-    from x_as_supervision_tpu_torch.train.factory import flagship_config
-    from x_as_supervision_tpu_torch.train.state import train_step
-    from x_as_supervision_tpu_torch.train.trainer import (
-        step_generator, to_device)
-
-    mesh.initialize_multihost()
-    mesh.make_grid(TP_MODEL)
-    rank = mesh.process_index()
-    device = mesh.rank_device()
-    cfg = flagship_config()
-    cfg["train_params"].update(batch_size=TP_BATCH,
-                               model_parallelism=TP_MODEL)
-    cams = cfg["dataset_params"]["cam_id_list"]
-    spec, state = _gan(cfg, torch.bfloat16, device, SEED)
-    tp.shard_state(state)
-    plain_state = (_gan(cfg, torch.bfloat16, device, SEED)[1]
-                   if rank == 0 else None)
-    ds = SyntheticPoseDataset(num_samples=TP_BATCH * 2, cam_id_list=cams,
-                              patch_size=PATCH, seed=SEED)
-    batches = [to_device(ds.batch(i * TP_BATCH, TP_BATCH), device)
-               for i in range(2)]
-
-    def step(i, kind):
-        if kind == "tp":
-            return train_step(state, batches[i % 2],
-                              step_generator(SEED, i, device))
-        with mock.patch.object(dist, "is_initialized", lambda: False):
-            return train_step(plain_state, batches[i % 2],
-                              step_generator(SEED, i, device))
-
-    if rank == 0:
-        step(0, "plain")  # warm-up of each path
-    mesh.barrier()
-    step(1, "tp")
-    torch.cuda.synchronize()
-    times = {"plain": [], "tp": []}
-    peak = {}
-    counters = _counters()
-    launches = dict.fromkeys(counters, 0)
-    paths = {name: dict.fromkeys(attrs, 0)
-             for name, attrs in TP_PATH_LAUNCHES.items()}
-    tp_steps = 0
-    for kind in ("plain", "tp", "plain"):
-        mesh.barrier()
-        if kind == "plain" and rank != 0:
-            mesh.barrier()
-            continue
-        torch.cuda.reset_peak_memory_stats()
-        before = {name: fn.launches for name, fn in counters.items()}
-        before_paths = {name: {a: getattr(counters[name], a) for a in attrs}
-                        for name, attrs in TP_PATH_LAUNCHES.items()}
-        for i in range(TP_COST_STEPS):
-            ev0, ev1 = (torch.cuda.Event(enable_timing=True),
-                        torch.cuda.Event(enable_timing=True))
-            if kind == "tp":
-                C.COUNTS.reset()
-                tp.replica_drift()
-                tp_steps += 1
-            ev0.record()
-            step(i, kind)
-            ev1.record()
-            torch.cuda.synchronize()
-            times[kind].append(ev0.elapsed_time(ev1))
-            if kind == "tp":
-                per_step = C.COUNTS.snapshot()
-                drift = tp.replica_drift()
-        peak[kind] = torch.cuda.max_memory_allocated() / 1e9
-        if kind == "tp":
-            for name, fn in counters.items():
-                launches[name] += fn.launches - before[name]
-            for name, attrs in TP_PATH_LAUNCHES.items():
-                for a in attrs:
-                    paths[name][a] += (getattr(counters[name], a)
-                                       - before_paths[name][a])
-        else:
-            mesh.barrier()
-    with open(_rank_out(out), "w") as f:
-        json.dump(dict(
-            rank=rank, step_ms=times, peak_memory_gb=peak, tp_steps=tp_steps,
-            launches=launches, path_launches=paths,
-            collectives_per_step=per_step,  # the last tp step's
-            replica_drift=drift,
-            backend=str(dist.get_backend()), world=mesh.process_count(),
-            grid=[mesh.data_size(), mesh.model_size()],
-            split_tensors=len(state.shard_dims)), f)
-
-
 def phase_tp(card: str, root: str) -> dict:
     """Tensor parallelism on the card (see the module docstring): (a) the
-    kernels at the shard shapes; (b) two gloo ranks against phase 13's one
-    process (its reference files in `root`); (c) the train CLI under
-    torchrun with model_parallelism 2, its checkpoint through the eval CLI,
-    and the tensor-parallel step's cost against one process."""
+    kernels at the shard shapes; (b) two gloo ranks against one process
+    (their reference files in `root`); (c) the train CLI under
+    torchrun with model_parallelism 2, its checkpoint through the eval
+    CLI."""
     import torch
 
     from x_as_supervision_tpu_torch.train.factory import flagship_config
@@ -4477,11 +4220,11 @@ def phase_tp(card: str, root: str) -> dict:
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     log_dir = os.path.join(root, "tp_log")
+    steps = TP_CLI_STEPS
     ranks = _torchrun(root, "tp_train", [
         "--config", cfg_path, "--synthetic", "--seed", str(SEED),
-        "--log_dir", log_dir], timeout=900, nproc=TP_MODEL)
-    # the synthetic fixture holds max(4 B, 64) samples
-    steps = max(4 * TP_BATCH, 64) // TP_BATCH
+        "--log_dir", log_dir, "--steps", str(steps)], timeout=900,
+        nproc=TP_MODEL)
     per_rank = []
     for train in ranks:
         r = train["rank"]
@@ -4513,31 +4256,16 @@ def phase_tp(card: str, root: str) -> dict:
                 k: {a: n / steps for a, n in v.items()}
                 for k, v in train["path_launches"].items()},
             collectives=train["collectives"]))
-    (run,) = os.listdir(log_dir)
-    path = os.path.join(log_dir, run, "00000_ckpt")
+    # the checkpoint the pair's ranks wrote (save_checkpoint gathers the
+    # shards; the CLI, stopped by --steps, saves none)
+    path = os.path.join(root, "tp_pair_log", "00000_ckpt")
     check(os.path.exists(os.path.join(path, "state.pt")),
-          "tp train CLI: no checkpoint")
+          "tp pair: no checkpoint")
     _, ev = _eval_cli(cfg_path, path, "best", True)
-    cost = _torchrun(root, "tp_cost", [], timeout=900, nproc=TP_MODEL)
-    for c in cost:
-        for name, per_step in _launches(cfg)[0].items():
-            got = c["launches"][name]
-            check(got == per_step * c["tp_steps"],
-                  f"tp cost rank {c['rank']}: {name} launched {got} times in "
-                  f"{c['tp_steps']} tp steps, expected {per_step} per step")
-        for name, attrs in TP_PATH_LAUNCHES.items():
-            for attr, per_step in attrs.items():
-                got = c["path_launches"][name][attr]
-                check(got == per_step * c["tp_steps"],
-                      f"tp cost rank {c['rank']}: {name}.{attr} = {got} in "
-                      f"{c['tp_steps']} tp steps")
-    plain = cost[0]["step_ms"]["plain"]
-    mean_plain = sum(plain) / len(plain)
-    by_group = {op: dict(calls=v["calls"], mb=v["bytes"] / 1e6)
-                for op, v in cost[0]["collectives_per_step"].items()}
     record = dict(
         phase="tp", card=card, model=TP_MODEL,
         global_batch_per_camera=TP_BATCH,
+        pair_batch_per_camera=TP_PAIR_BATCH,
         kernel_cases=[{k: c.get(k) for k in (
             "name", "dtype", "shape", "cout", "path", "tile", "max_abs_err",
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
@@ -4562,19 +4290,7 @@ def phase_tp(card: str, root: str) -> dict:
         train_cli=dict(steps=steps, ranks=per_rank),
         eval_cli={k: ev[k] for k in ("batches", "launches_per_batch",
                                      "wgmma_per_batch", "ambiguity_ratio",
-                                     "eval_result")},
-        cost=dict(
-            step_ms=[c["step_ms"] for c in cost],
-            mean_plain_ms=mean_plain,
-            mean_tp_ms=[sum(c["step_ms"]["tp"]) / len(c["step_ms"]["tp"])
-                        for c in cost],
-            tp_over_plain=[sum(c["step_ms"]["tp"]) / len(c["step_ms"]["tp"])
-                           / mean_plain for c in cost],
-            peak_memory_gb=[c["peak_memory_gb"] for c in cost],
-            replica_drift=[c["replica_drift"] for c in cost],
-            collectives_per_step=by_group,
-            launches_per_step={k: v / cost[0]["tp_steps"]
-                               for k, v in cost[0]["launches"].items()}))
+                                     "eval_result")})
     emit(**record)
     return record
 
@@ -4737,11 +4453,9 @@ def _run_dir(log_dir: str, config_name: str) -> str:
 
 def _launch_plain(root: str) -> dict:
     """(a) launch_train.sh local 1 on the flagship config for the epochs of
-    (c), its event file's writes watched, then launch_eval.sh on its last
-    checkpoint."""
+    (b), its event file's writes watched."""
     import re
 
-    from x_as_supervision_tpu_torch.checks import result_lines
     from x_as_supervision_tpu_torch.train.factory import flagship_config
 
     cfg = flagship_config()
@@ -4783,82 +4497,14 @@ def _launch_plain(root: str) -> dict:
     logs = os.listdir(os.path.join(root, "launch_output"))
     check(len(logs) == 1, f"launch_train: launch_output holds {logs}")
 
-    ev = _Watch([os.path.join(LAUNCH_SCRIPTS, "launch_eval.sh"), "local",
-                 "1", cfg_path, last, "best"],
-                _launch_env(root, XAS_EXTRA_ARGS="--synthetic"), root, log)
-    eval_s = ev.wait(timeout=600) - ev.t0
-    (erec,) = _launch_counts(root)
-    nb = TRAIN_IMAGES // TRAIN_BATCH
-    per_batch = {k: v / nb for k, v in erec["launches"].items()}
-    check(erec["module"] == "x_as_supervision_tpu_torch.eval"
-          and per_batch == {k: float(v) for k, v in EVAL_LAUNCHES.items()}
-          and erec["path_launches"]["conv_bn_link"]["launches_wgmma"]
-          == EVAL_LAUNCHES["conv_bn_link"] * nb,
-          f"launch_eval: {erec}")
-    lines = result_lines(os.path.join(run_dir, "eval", "eval_result.txt"))
-    check(len(lines) == 15 and all(
-        v is None or np.isfinite(v) for _, v in lines),
-        f"launch_eval: eval_result.txt {lines}")
     return dict(train_script_s=end - run.t0, steps=steps,
                 healthy_gap_s=healthy_gap, event_writes=len(run.writes),
-                eval_script_s=eval_s, launches_per_step=per_step,
-                path_launches_per_step=paths,
-                eval_launches_per_batch=per_batch,
-                eval_result=[f"{k}: {v}" if v is not None else k
-                             for k, v in lines],
+                launches_per_step=per_step, path_launches_per_step=paths,
                 config=cfg_path, last_checkpoint=last)
 
 
-def _launch_pair(root: str) -> dict:
-    """(b) launch_train.sh local 2: two ranks on the one card over gloo."""
-    import re
-
-    cfg = _dp_pair_config()
-    cfg["train_params"].update(num_epochs=1, checkpoint_freq=1)
-    cfg_path = os.path.join(root, "flagship_pair.json")
-    with open(cfg_path, "w") as f:
-        json.dump(cfg, f)
-    log = os.path.join(root, "log_pair")
-    env = _launch_env(root, XAS_COORD_PORT=str(_free_port()),
-                      XAS_EXTRA_ARGS=f"--synthetic --seed {SEED} --fp32 "
-                                     f"--log_dir {log}")
-    run = _Watch([os.path.join(LAUNCH_SCRIPTS, "launch_train.sh"), "local",
-                  "2", cfg_path], env, root, log)
-    wall_s = run.wait(timeout=600) - run.t0
-    out = run.text()
-    records = _launch_counts(root)
-    check([r["rank"] for r in records] == [0, 1],
-          f"launch pair: counts of ranks {[r['rank'] for r in records]}")
-    # the synthetic fixture's 64 samples at the global batch of 16
-    steps = 64 // DP_PAIR_BATCH
-    for r in records:
-        per_step = {k: v / steps for k, v in r["launches"].items()}
-        check(per_step == {k: float(v)
-                           for k, v in _launches(cfg)[0].items()},
-              f"launch pair: rank {r['rank']} launches per step {per_step}")
-    run = _run_dir(log, "flagship_pair.json")
-    check(os.path.isfile(os.path.join(run, "00000_ckpt", "state.pt")),
-          "launch pair: no checkpoint")
-    saves = out.count("checkpoint saved:")
-    step_lines = len(re.findall(r"^step \d+ ", out, re.M))
-    check(saves == 1 and step_lines == steps,
-          f"launch pair: {saves} saves and {step_lines} step lines "
-          f"announced: {out[-2000:]}")
-    check(out.count("Running command: python -m "
-                    "x_as_supervision_tpu_torch.train") == 2,
-          "launch pair: train.sh did not run once a rank")
-    return dict(wall_s=wall_s, steps=steps, saves_announced=saves,
-                step_lines=step_lines,
-                launches_per_step=[{k: v / steps for k, v in
-                                    r["launches"].items()} for r in records],
-                path_launches_per_step=[
-                    {k: {a: v / steps for a, v in d.items()}
-                     for k, d in r["path_launches"].items()}
-                    for r in records])
-
-
 def _launch_resumable(root: str, plain: dict) -> dict:
-    """(c) train_resumable.sh on (a)'s config, its trainer stopped
+    """(b) train_resumable.sh on (a)'s config, its trainer stopped
     (SIGSTOP) once 00000_ckpt is saved; the run's final state against the
     epoch after 00000_ckpt replayed twice in this process: bitwise where
     the two replays are, else within twice their distance."""
@@ -5082,23 +4728,235 @@ def phase_launch(card: str) -> dict:
     with tempfile.TemporaryDirectory() as root:
         plain = _launch_plain(root)
         emit(phase="launch_plain", card=card, **plain)
-        pair = _launch_pair(root)
-        emit(phase="launch_pair", card=card, **pair)
         resumable = _launch_resumable(root, plain)
         emit(phase="launch_resumable", card=card, **resumable)
     record = dict(phase="launch", card=card,
-                  seconds=time.perf_counter() - t0, plain=plain, pair=pair,
+                  seconds=time.perf_counter() - t0, plain=plain,
                   resumable=resumable)
     emit(phase="launch_summary", card=card, seconds=record["seconds"])
     return record
 
 
 
+def _tools_conv_bn(cases: list) -> dict:
+    """bench_conv_bn at the detector's three link shapes (B = 128, bf16) and
+    its exactness sweep on 16x256: every error within the kernel phase's
+    bf16 bound, one link launch a call, and the 16x256 time within
+    TOOLS_LINK_MS_SHARE of the kernel phase's at the same shape."""
+    from x_as_supervision_tpu_torch.tools import bench_conv_bn
+
+    t0 = time.perf_counter()
+    rows = bench_conv_bn.main(["--batch", str(TRAIN_IMAGES)])
+    sweep = bench_conv_bn.main(["--shapes", "16x256", "--check_batches",
+                                "2,8,16,128"])
+    tol = 2 ** -7  # _link_case's bf16 bound, of the plain y's largest
+    for r in rows:
+        check(r["max_abs_err"] <= tol * r["y_max"]
+              and r["stats_rel_err"] <= 1e-5,
+              f"tools bench_conv_bn {r['shape']}: max|err| "
+              f"{r['max_abs_err']} of {r['y_max']}, stats {r['stats_rel_err']}")
+        check(r["path"] == "wgmma" and r["launches_per_call"] == {
+            "integral_marginals": 0, "integral_marginals_bwd": 0,
+            "conv_bn_link": 1, "conv3x3": 0},
+            f"tools bench_conv_bn {r['shape']}: path {r['path']}, launches "
+            f"{r['launches_per_call']}")
+    for r in sweep:
+        check(r["y_max_abs_err"] <= tol * r["y_max"]
+              and r["stats_rel_err"] <= 1e-5,
+              f"tools bench_conv_bn --check_batches {r['shape']}: {r}")
+    ref = next(c for c in cases if c["name"] == "conv_bn_link"
+               and c["dtype"] == "bf16"
+               and c["shape"] == [TRAIN_IMAGES, 256, 16, 16])
+    row = next(r for r in rows if r["shape"] == "256x16x16")
+    ratio = row["fused_ms"] / ref["ms"]
+    check(abs(ratio - 1) <= TOOLS_LINK_MS_SHARE,
+          f"tools bench_conv_bn 16x256: {row['fused_ms']} ms against the "
+          f"kernel phase's {ref['ms']} ms")
+    return dict(rows=rows, check_batches=sweep, kernel_phase_ms=ref["ms"],
+                fused_over_kernel_phase=ratio,
+                seconds=time.perf_counter() - t0)
+
+
+def _tools_serve(serve: dict) -> dict:
+    """bench_serve with HM36_Multi_SurS2's detector at batches 1, 8, 32:
+    one decode and seven links a forward; its batch-32 rate beside the
+    serve phase's (nothing held: the host moves serving)."""
+    from x_as_supervision_tpu_torch.tools import bench_serve
+
+    t0 = time.perf_counter()
+    rows = bench_serve.main(["--config", SERVE_CONFIG, "--batches",
+                             "1,8,32", "--iters", "10"])
+    links = sum(n for _, _, n in LINK_SHAPES)
+    for r in rows:
+        got = r["launches_per_forward"]
+        check(got["integral_marginals"] == 1 and got["conv_bn_link"] == links
+              and np.isfinite(r["checksum"]),
+              f"tools bench_serve batch {r['batch']}: launches {got}, "
+              f"checksum {r['checksum']}")
+    return dict(rows=rows, serve_phase_img_per_s=serve["img_per_s"],
+                batch32_img_s_e2e=rows[-1]["img_s_e2e"],
+                seconds=time.perf_counter() - t0)
+
+
+def _tools_control() -> dict:
+    """bench_resnet_control: ResNet-50 + pool + Linear(1000) at 256^2,
+    B = 128, bf16: a finite loss, the link launched 7 times a step (a
+    detector forward's: the backbone holds every link, and its backward is
+    PyTorch ops), step ms, img/s and MFU against the card's bf16 peak."""
+    from x_as_supervision_tpu_torch.tools import bench_resnet_control
+
+    t0 = time.perf_counter()
+    warmup, iters = TOOLS_CONTROL_STEPS
+    (row,) = bench_resnet_control.main([
+        "--batch", str(TRAIN_IMAGES), "--size", str(PATCH), "--layers", "50",
+        "--warmup", warmup, "--iters", iters])
+    links = sum(n for _, _, n in LINK_SHAPES)
+    check(np.isfinite(row["loss"]) and row["launches_per_step"] == {
+        "integral_marginals": 0, "integral_marginals_bwd": 0,
+        "conv_bn_link": links, "conv3x3": 0},
+        f"tools bench_resnet_control: loss {row['loss']}, launches "
+        f"{row['launches_per_step']}")
+    return dict(row, seconds=time.perf_counter() - t0)
+
+
+def _tools_loader(root: str, train: dict) -> dict:
+    """bench_loader on an H36M fixture of phase 10's size (4 cameras of
+    1000^2 JPEGs, 64 frames: 3 batches of 32, one a warm-up) under the
+    flagship config, on the train CLI's threads, against the device demand
+    (img/s) the train phase measured."""
+    from x_as_supervision_tpu_torch import checks
+    from x_as_supervision_tpu_torch.tools import bench_loader
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+
+    t0 = time.perf_counter()
+    checks.write_mini_h36m(root, img_size=REAL_IMG, n_frames=REAL_FRAMES,
+                           seed=SEED)
+    checks.write_surreal_pseudo(os.path.join(root, "surreal_h36m_pose"),
+                                REAL_PSEUDO, seed=SEED + 1, size=PATCH)
+    fixture_s = time.perf_counter() - t0
+    cfg = flagship_config()
+    cfg["dataset_params"] = checks.hm36_dataset_params(root)
+    cfg["train_params"].update(aug=dict(checks.NO_AUG))
+    path = os.path.join(root, "flagship_real.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    rows = bench_loader.main([
+        "--config", path, "--batches", "3", "--batch-size", str(TRAIN_BATCH),
+        "--worker", str(LOADER_WORKERS), "--device-demand",
+        str(train["img_per_s"])])
+    for r in rows[:-1]:
+        check(r["batches"] == 2 and r["samples_s"] > 0,
+              f"tools bench_loader {r['knob']}: {r}")
+    check("feed_bound" in rows[-1], f"tools bench_loader: {rows[-1]}")
+    return dict(rows=rows, fixture_s=fixture_s,
+                seconds=time.perf_counter() - t0)
+
+
+def _tools_trace(root: str) -> dict:
+    """trace_opclass on the trace the train CLI writes with
+    train_params.profile over flagship steps 1 and 2 (of 3; a run of its
+    own, so no timed number passes through the profiler): the four
+    kernels at checks.train_launches' counts a step."""
+    import torch
+
+    from x_as_supervision_tpu_torch.tools import trace_opclass
+    from x_as_supervision_tpu_torch.train.__main__ import main as train_main
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+
+    t0 = time.perf_counter()
+    cfg = flagship_config()
+    cfg["train_params"]["profile"] = dict(TOOLS_PROFILE)
+    path = os.path.join(root, "flagship_profiled.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    log_dir = os.path.join(root, "profiled")
+    steps = TOOLS_PROFILE["start_step"] + TOOLS_PROFILED_STEPS
+    trainer = train_main(["--config", path, "--synthetic", "--seed",
+                          str(SEED), "--log_dir", log_dir, "--steps",
+                          str(steps)])
+    check(trainer.state.step == steps,
+          f"tools profiled train CLI: {trainer.state.step} steps")
+    del trainer
+    torch.cuda.empty_cache()
+    (run,) = os.listdir(log_dir)
+    (row,) = trace_opclass.main([os.path.join(log_dir, run), "--steps",
+                                 str(TOOLS_PROFILED_STEPS)])
+    want, _ = _launches(cfg)
+    got = {name: row["classes"][name]["count_per_step"] for name in want}
+    check(got == want, f"tools trace_opclass: kernels a step {got}, "
+                       f"expected {want}")
+    return dict(trace=os.path.basename(row["trace"]),
+                total_ms_per_step=row["total_ms_per_step"],
+                classes=row["classes"], trace_device=row["device"],
+                seconds=time.perf_counter() - t0)
+
+
+def _tools_scaling(root: str, dp: dict) -> dict:
+    """scaling_projection under torchrun on one NCCL rank at the flagship
+    config (32 samples of each camera): its all-reduce calls and bytes a
+    step those of phase 13's train CLI, the flagship launches a step in the
+    group and without it, no projection (no --link-gbps)."""
+    from x_as_supervision_tpu_torch.train.factory import flagship_config
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "scaling.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m",
+           "x_as_supervision_tpu_torch.tools.scaling_projection",
+           "--per-device-batch", str(TRAIN_BATCH), "--out", out]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=REPO_ROOT)
+    check(res.returncode == 0,
+          f"tools scaling_projection exited {res.returncode}: "
+          f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    with open(out) as f:
+        report = json.load(f)
+    got = report["measured"]["collectives_per_step"].get("all_reduce/data")
+    want = dp["train_cli"]["all_reduce_per_step"]
+    check(report["world"] == 1 and report["backend"] == "nccl"
+          and got == want and "projection" not in report,
+          f"tools scaling_projection: world {report['world']}, backend "
+          f"{report['backend']}, all-reduce {got} against phase dp's {want}")
+    launches, _ = _launches(flagship_config())
+    check(report["weak_scaling"]["launches_equal"]
+          and report["measured"]["launches_per_step"] == launches,
+          f"tools scaling_projection: launches {report['measured']} "
+          f"against {launches}, {report['weak_scaling']}")
+    return dict(report, seconds=time.perf_counter() - t0)
+
+
+def phase_tools(card: str, cases: list, serve: dict, train: dict,
+                dp: dict) -> dict:
+    """Phase 18 (see the module docstring): the port's measurement tools on
+    the card at full width, each through its main."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    # what else runs on the card as the phase starts: the tools' times
+    # depend on it
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,process_name,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    with tempfile.TemporaryDirectory(prefix="xas_tools_") as root:
+        record = dict(card_processes=apps.stdout.strip().splitlines(),
+                      conv_bn=_tools_conv_bn(cases),
+                      serve=_tools_serve(serve), control=_tools_control(),
+                      loader=_tools_loader(root, train),
+                      trace=_tools_trace(root),
+                      scaling=_tools_scaling(root, dp))
+    torch.cuda.empty_cache()
+    record.update(phase="tools", card=card, seconds=time.perf_counter() - t0)
+    emit(**record)
+    return record
+
+
 def dp_rank_main(argv: list) -> int:
     """The rank processes of phase_dp and phase_tp: ``dp-rank
-    train|eval|tp_train <out> <CLI args>`` and ``dp-rank cost|tp_cost
-    <out>`` under torchrun, ``dp-rank pair|tp_pair <rank> <port> <dir>``
-    beside its twin."""
+    train|tp_train <out> <CLI args>`` under torchrun, ``dp-rank
+    pair|tp_pair <rank> <port> <dir>`` beside its twin."""
     role = argv[0]
     if role in ("pair", "tp_pair"):
         run = _dp_rank_pair if role == "pair" else _tp_rank_pair
@@ -5107,12 +4965,7 @@ def dp_rank_main(argv: list) -> int:
     from x_as_supervision_tpu_torch.parallel import mesh
 
     try:
-        if role == "cost":
-            _dp_rank_cost(argv[1])
-        elif role == "tp_cost":
-            _tp_rank_cost(argv[1])
-        else:
-            _dp_rank_cli(argv[1], role, argv[2:])
+        _dp_rank_cli(argv[1], argv[2:])
     finally:
         mesh.shutdown()
     return 0
@@ -5175,30 +5028,46 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs one NVIDIA card",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        emit(phase="phase_seconds", name=name, seconds=seconds[name],
+             total_s=time.perf_counter() - t_start)
+        return out
+
     try:
-        device = phase_device()
-        phase_build()
-        cases = phase_kernels()
-        serve, est, images = phase_serve()
-        phase_profile(est, images)
+        device = timed("device", phase_device)
+        card = device["nvidia_smi"]
+        timed("build", phase_build)
+        cases = timed("kernels", phase_kernels)
+        serve, est, images = timed("serve", phase_serve)
+        timed("profile", phase_profile, est, images)
         del est
         torch.cuda.empty_cache()
-        train = phase_train()
-        remat = phase_remat(device["nvidia_smi"])
-        phase_train_parity()
-        train_eval = phase_train_eval()
-        phase_eval_parity()
-        phase_real_data(device["nvidia_smi"])
-        variants = phase_variants()
-        mono = phase_mono(device["nvidia_smi"])
-        campaign = phase_campaign(device["nvidia_smi"])
+        train = timed("train", phase_train)
+        remat = timed("remat", phase_remat, card)
+        timed("train_parity", phase_train_parity)
+        train_eval = timed("train_eval", phase_train_eval)
+        timed("eval_parity", phase_eval_parity)
+        timed("real_data", phase_real_data, card)
+        variants = timed("variants", phase_variants)
+        mono = timed("mono", phase_mono, card)
+        campaign = timed("campaign", phase_campaign, card)
         with tempfile.TemporaryDirectory() as root:
-            dp = phase_dp(device["nvidia_smi"], root)
-            tp = phase_tp(device["nvidia_smi"], root)
-        launch = phase_launch(device["nvidia_smi"])
+            dp = timed("dp", phase_dp, card, root)
+            tools = timed("tools", phase_tools, card, cases, serve, train,
+                          dp)
+            tp = timed("tp", phase_tp, card, root)
+        launch = timed("launch", phase_launch, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    emit(phase="summary", card=card, seconds=time.perf_counter() - t_start,
+         phase_seconds=seconds)
 
     # each kernel's line: the case at the training step's shape and type
     main_case = {
@@ -5256,10 +5125,13 @@ def main() -> int:
                 s2_step=campaign["s2"]["launches_per_step"][name],
                 eval_batch=campaign["s1_eval"]["launches_per_batch"][name]),
             launch_launches=dict(
-                train_step=launch["plain"]["launches_per_step"][name],
-                eval_batch=launch["plain"]["eval_launches_per_batch"][name],
-                pair_step=[r[name] for r in
-                           launch["pair"]["launches_per_step"]]),
+                train_step=launch["plain"]["launches_per_step"][name]),
+            tools_launches=dict(
+                serve_forward=tools["serve"]["rows"][-1][
+                    "launches_per_forward"][name],
+                control_step=tools["control"]["launches_per_step"][name],
+                bench_conv_bn_call=tools["conv_bn"]["rows"][0][
+                    "launches_per_call"][name]),
             mono_shape=mcase["shape"], mono_max_abs_err=mcase["max_abs_err"],
             mono_ms=mcase["ms"], mono_plain_ms=mcase["plain_ms"],
             mono_bound_ms=mcase["bound_ms"],

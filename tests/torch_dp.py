@@ -495,8 +495,20 @@ def job_eval(rank: int, world: int, workdir: str) -> dict:
     return out
 
 
+def job_scaling(rank: int, world: int, workdir: str) -> dict:
+    """tools/scaling_projection.py's CLI on this rank: the tiny flagship
+    config in fp32 at 2 samples of each camera a rank, projected at 100
+    GB/s (rank 0 writes the report to <workdir>/scaling.json)."""
+    from x_as_supervision_tpu_torch.tools import scaling_projection
+
+    return scaling_projection.main([
+        "--tiny", "--per-device-batch", "2", "--fp32", "--device", "cpu",
+        "--link-gbps", "100", "--out", os.path.join(workdir, "scaling.json")])
+
+
 JOBS = {"basics": job_basics, "jax_steps": job_jax_steps,
-        "port_steps": job_port_steps, "eval": job_eval}
+        "port_steps": job_port_steps, "eval": job_eval,
+        "scaling": job_scaling}
 
 
 def main(argv) -> None:

@@ -32,7 +32,10 @@ the offline tools that render the self-rendered campaign:
               thread-pool batch loader
   tools/      the offline SMPL tools: JAX's threefry stream in numpy, the
               procedural humanoid, the SURREAL constructor, the
-              self-rendered campaign and its manifest
+              self-rendered campaign and its manifest; the train CLI's
+              resilient driver; the measurement tools (the link kernel,
+              serving, a ResNet control step, the feed, a profiled
+              window's op classes, a train step's collectives)
   checks.py   helpers shared by the tests and chip_smoke.py (the anchored
               eval fixture, eval_result.txt reader, state comparison,
               TensorBoard event reader, miniature on-disk datasets, the

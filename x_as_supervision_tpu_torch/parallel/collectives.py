@@ -33,9 +33,11 @@ the same downstream).
 (``all_reduce/data``, ``all_gather/model``, ...; the payload: an
 all-reduce's tensor, an all-gather's output), forward and backward, since
 its last ``reset``; it takes the place of the JAX package's
-``hlo_collective_bytes``, which reads them out of the compiled XLA program.
-``data_parallel_shard_map`` has no counterpart: its one JAX caller,
-tools/scaling_projection.py, is not ported.
+``hlo_collective_bytes``, which reads them out of the compiled XLA program
+(tools/scaling_projection.py reads it after one train step).
+``data_parallel_shard_map`` has no counterpart: its one JAX caller is the
+JAX scaling_projection's micro-checks of these helpers, which the port's
+CPU tests make (tests/test_torch_parallel.py).
 """
 
 from __future__ import annotations

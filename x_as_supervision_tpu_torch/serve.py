@@ -39,6 +39,17 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return device
 
 
+def preprocess(images: torch.Tensor, mean, std) -> torch.Tensor:
+    """(N, S, S, 3) RGB uint8/float -> fp32 (N, 3, S, S), normalized by the
+    config's dataiter mean and std where it gives them."""
+    x = images.float()
+    if mean is not None and std is not None:
+        mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
+        std = torch.tensor(std, dtype=torch.float32, device=x.device)
+        x = (x - mean) / std
+    return x.permute(0, 3, 1, 2)
+
+
 class PoseEstimator:
     def __init__(
         self,
@@ -75,12 +86,7 @@ class PoseEstimator:
 
     def preprocess(self, images: torch.Tensor) -> torch.Tensor:
         """(N, S, S, 3) RGB uint8/float -> normalized fp32 (N, 3, S, S)."""
-        x = images.float()
-        if self.mean is not None and self.std is not None:
-            mean = torch.tensor(self.mean, dtype=torch.float32, device=x.device)
-            std = torch.tensor(self.std, dtype=torch.float32, device=x.device)
-            x = (x - mean) / std
-        return x.permute(0, 3, 1, 2)
+        return preprocess(images, self.mean, self.std)
 
     @torch.inference_mode()
     def __call__(self, images: np.ndarray) -> PoseResult:

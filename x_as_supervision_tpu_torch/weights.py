@@ -16,7 +16,8 @@ Conversions: conv kernels HWIO -> OIHW; a flax ConvTranspose kernel is the
 torch ConvTranspose2d(k4, s2, p1) weight spatially flipped and transposed, so
 its inverse is a flip, then a permute to (Cin, Cout, kh, kw); a flax Dense
 kernel (in, out) is a Linear weight (out, in) transposed (so is the
-AvgPoolHead's ``Dense_0``, the port's ``fc``).
+AvgPoolHead's ``Dense_0``, the port's ``fc``, and the ResNet classifier's
+``Dense_0`` after its ``backbone``, the port's ``head.fc``).
 
 The physique net's flax tree is ``Conv_i`` (kernel, bias) and
 ``_BN_i/BatchNorm_0``; the port's is ``convs.i`` and ``bns.i``. The
@@ -150,6 +151,18 @@ def avg_pool_head_state_dict(params: dict) -> dict:
     state_dict (``fc``)."""
     sd: dict = {}
     _dense(sd, "fc", params["Dense_0"])
+    return sd
+
+
+def resnet_classifier_state_dict(variables: dict) -> dict:
+    """JAX variables of a ResNetBackbone (``backbone``) with a ``Dense_0``
+    after its average pool (the JAX package's tools/bench_resnet_control.py
+    classifier) -> the port's tools/bench_resnet_control.py:ResNetClassifier
+    state_dict (``backbone.*``, ``head.fc.*``)."""
+    net = _backbone_state_dict(variables["params"]["backbone"],
+                               variables["batch_stats"]["backbone"])
+    sd = {k[len("net."):]: v for k, v in net.items()}
+    _dense(sd, "head.fc", variables["params"]["Dense_0"])
     return sd
 
 
