@@ -25,12 +25,16 @@ flagship step has 2 + 2 and 14.
 
 1. versions, and the card's name and power limit from nvidia-smi;
 2. build: every csrc/*.cu with nvcc for sm_90a, all compilers started
-   together; ptxas's registers and spills of the decode forward;
+   together; ptxas's registers and spills of the decode forward and the
+   conv's kernels;
 3. kernels: each kernel at the shapes the serving path gives it, in fp32 and
    bf16, against its plain version on the same inputs (fp32 with TF32 off);
    kernel, plain and library times with CUDA events, each case with the
-   path it took (link: wgmma and its tile, or FMA; conv3x3: tensor cores or
-   CUDA cores); the conv's library time at the kernel's channels-last
+   path it took (link: wgmma and its tile, or FMA; conv3x3: tensor cores,
+   thin or FMA, each launch counted on its path), the conv also at a
+   tensor-parallel rank's shards (B = 64) and at ragged edges (odd sides,
+   B = 1 and 3, channels off every block); the conv's library time at the
+   kernel's channels-last
    layout, and at NCHW as ``library_nchw_ms``; the decode forward at fp32
    and bf16, B = 32 and 128, each with its launch plan (split, cluster,
    stages), its resident blocks per SM and its share of the bound;
@@ -49,7 +53,7 @@ flagship step has 2 + 2 and 14.
    loss. The launch counts are set to 0 just before the timed steps and read
    just after: per step decode forward 2, decode backward 2, link 14 (all on
    wgmma), physique conv 10 forward + 8 input gradients (14 on tensor
-   cores, 4 on CUDA cores). Then a vis step (``with_outputs``, the launches
+   cores, 4 on the thin kernel). Then a vis step (``with_outputs``, the launches
    of a step) timed against a plain one by CUDA events in turns (plain,
    vis, vis, plain), and the host's logging of it: the one fetch of the
    metrics, the one fetch of the outputs, tb_vis into an event file. Then
@@ -57,7 +61,9 @@ flagship step has 2 + 2 and 14.
    transpose kernels it still runs;
 7. train-parity: one fused step of a reduced flagship config (ResNet-50 at
    64^2, 2 cameras, batch 2, D = 16) in fp32 on the card, TF32 off, against
-   the same step on the CPU's plain path from the same weights and batch;
+   the same step on the CPU's plain path from the same weights and batch,
+   its launches counted (fp32: link 14 on the FMA path, conv3x3 14 on the
+   FMA kernel and 4 on the thin one);
 8. train-eval: the flagship config written as JSON, trained for one epoch
    through the train CLI (``--synthetic``: 128 samples, 4 steps of 4
    cameras x 32 at 256^2, bf16) to its checkpoint 00000_ckpt, with the
@@ -204,7 +210,7 @@ flagship step has 2 + 2 and 14.
    rank's shard shapes against their plain versions, with their bound and
    cuDNN's time: the link at 256 -> 128 on 16^2 and 512 -> 256 on 8^2
    (B = 64, bf16 on wgmma and fp32), the physique's 32 -> 16 conv at 256^2
-   (the CUDA-core route). (b) Two ranks (fp32, TF32 off, phase 13's
+   (bf16 on tensor cores, fp32 on the FMA kernel). (b) Two ranks (fp32, TF32 off, phase 13's
    conditioning and cuDNN's deterministic algorithms) at 4 cameras x 4
    (TP_PAIR_BATCH) from a one-process reference made as phase 13's is:
    the generator's gradients,
@@ -222,7 +228,7 @@ flagship step has 2 + 2 and 14.
    with ``model_parallelism: 2`` in the config (bf16, synthetic, 4 x 16,
    ``--steps 2``, so no checkpoint; the ranks pick gloo themselves): per
    rank and step decode 2 + 2, link 14 on wgmma at the shard's Cout,
-   conv3x3 10 on tensor cores and 8 on CUDA cores. The pair's batch and
+   conv3x3 14 on tensor cores and 4 on the thin kernel. The pair's batch and
    the CLI's steps are cut for the script's time limit (a step moves some
    200 MB of gloo traffic an image), and the tensor-parallel step's cost
    against one process is not timed.
@@ -249,7 +255,7 @@ flagship step has 2 + 2 and 14.
    96 frames padded by a batch, 4 steps of 4 cameras x 32 at 256^2, bf16,
    the launches per step of ``full`` (decode 4 + 2, link 28; the config's
    physique widths are the flagship's [32, 64, 128]: conv3x3 14 on tensor
-   cores + 4 on CUDA cores),
+   cores + 4 on the thin kernel),
    CUDA events around each step and each batch's copy to the card, the
    loader's wait per step; its checkpoint scored by the eval CLI in best
    mode (2 batches, phase 8's launches per batch). (e) Campaign_SurS2
@@ -333,7 +339,10 @@ instead, and compares its manifest with the JAX package's
 benchmarks/campaign/xl_manifest.json (counts, and how many digests agree).
 
 Earlier lines carry the findings as JSON; the line before the last lists the
-kernels (launches per training step, per serving forward, per eval batch,
+kernels, conv3x3.cu's three on rows of their own (``conv3x3``: the tensor
+cores, ``conv3x3_thin``: its main case 32 -> 1 at B = 128, ``conv3x3_fma``:
+fp32, its launches from phase 7's fp32 step; the launch counts beside them
+are the wrapper's, ``path_launches`` by path) (launches per training step, per serving forward, per eval batch,
 per step on the per-camera path, per mono step, per eval2d batch, per step
 of the train CLI under torchrun: ``dp_launches``, per step of each rank
 of the tensor-parallel train CLI: ``tp_launches``, per S1 step, S2 step
@@ -387,6 +396,16 @@ CONV_SHAPES = (
     (64, 32, 256, 1), (32, 1, 256, 1),
     (64, 128, 128, 1), (32, 64, 256, 1),
 )
+# a tensor-parallel rank's physique convs on their Cout shards that no
+# flagship conv has, at its batch (the pair's 4 cameras x 16): the forwards
+# 32->16 and 64->16 and their input gradients 16->32 and 16->64 (bf16:
+# tensor cores; fp32: the FMA kernel); (Cin, Cout, side, stride)
+TP_CONV_SHAPES = ((32, 16, 256, 1), (64, 16, 256, 1), (16, 32, 256, 1),
+                  (16, 64, 256, 1))
+# ragged edges: odd sides cut every kernel's tiles, B = 1 and 3, channel
+# counts off every block multiple (B, Cin, Cout, H, W, stride)
+RAGGED_CONV_SHAPES = ((3, 1, 32, 45, 67, 1), (1, 32, 1, 45, 67, 2),
+                      (3, 16, 48, 37, 29, 2), (1, 24, 40, 45, 67, 1))
 # launches per training step come from
 # x_as_supervision_tpu_torch/checks.py:train_launches(config, remat mode):
 # the flagship step (remat off) two detector forwards (cameras, pseudo
@@ -394,10 +413,12 @@ CONV_SHAPES = (
 # physique net's 10 convs and the input gradients of its 8 stride-1 ones;
 # every bf16 link on wgmma, the physique convs with 32 or more channels on
 # both sides on tensor cores (8 forwards, 6 input gradients), 1->32, 32->1
-# and their input gradients on the CUDA cores. These are the counters that
-# count by path:
+# and their input gradients on the thin kernel; in fp32 every link on the
+# FMA path and those 14 convs on the FMA kernel. These are the counters
+# that count by path:
 PATH_COUNTERS = {"conv_bn_link": ("launches_wgmma", "launches_fma"),
-                 "conv3x3": ("launches_tc", "launches_cuda_core")}
+                 "conv3x3": ("launches_tc", "launches_thin",
+                             "launches_cuda_core")}
 # launches per eval batch: one detector forward per camera, each one decode
 # and seven links (all on wgmma in bf16); no backward, no physique net
 EVAL_LAUNCHES = {"integral_marginals": 4, "integral_marginals_bwd": 0,
@@ -510,8 +531,8 @@ XL_MANIFEST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 DP_PAIR_BATCH = 16
 # tensor parallelism: two model ranks on the one card (data 1), at the dp
 # pair's global batch per camera (every image on both ranks); the link at a
-# rank's Cout shard, (Cin, Cout / 2, H = W); the physique conv the split
-# sends to the CUDA cores, (Cin, Cout / 2, side, stride)
+# rank's Cout shard, (Cin, Cout / 2, H = W); the physique conv's 32 -> 16
+# shard, (Cin, Cout / 2, side, stride)
 TP_MODEL = 2
 TP_BATCH = DP_PAIR_BATCH
 # the pair's batch per camera, against a one-process reference of its own:
@@ -524,12 +545,13 @@ TP_CLI_STEPS = 2
 TP_LINK_SHAPES = ((256, 128, 16), (512, 256, 8))
 TP_CONV = (32, 16, 256, 1)
 # per rank and step: the flagship step's launches, the physique convs on
-# their Cout shards: the forwards 1->16, 32->16, 64->16 and the replicated
-# 32->1 with their four input gradients on the CUDA cores, the other six
-# forwards and four input gradients on tensor cores
+# their Cout shards: the forwards 1->16 and the replicated 32->1 with
+# their input gradients on the thin kernel, the other eight forwards
+# (32->16 and 64->16 among them) and six input gradients on tensor cores
 TP_PATH_LAUNCHES = {
     "conv_bn_link": {"launches_wgmma": 14, "launches_fma": 0},
-    "conv3x3": {"launches_tc": 10, "launches_cuda_core": 8},
+    "conv3x3": {"launches_tc": 14, "launches_thin": 4,
+                "launches_cuda_core": 0},
 }
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 # phase 16: the launch scripts; (b)'s run: epochs of the flagship's 4 steps,
@@ -559,9 +581,20 @@ KERNELS = {
     "conv_bn_link": dict(
         source="x_as_supervision_tpu_torch/csrc/conv_bn_link.cu",
         replaces="x_as_supervision_tpu/ops/conv_bn_pallas.py:52"),
+    # conv3x3.cu's three kernels, one wrapper (ops/conv3x3.py): each row
+    # reads its own path counter
     "conv3x3": dict(
         source="x_as_supervision_tpu_torch/csrc/conv3x3.cu",
-        replaces="x_as_supervision_tpu/ops/conv_pallas.py:91"),
+        replaces="x_as_supervision_tpu/ops/conv_pallas.py:91",
+        module="conv3x3", counter="launches_tc"),
+    "conv3x3_thin": dict(
+        source="x_as_supervision_tpu_torch/csrc/conv3x3.cu",
+        replaces="x_as_supervision_tpu/ops/conv_pallas.py:91",
+        module="conv3x3", counter="launches_thin"),
+    "conv3x3_fma": dict(
+        source="x_as_supervision_tpu_torch/csrc/conv3x3.cu",
+        replaces="x_as_supervision_tpu/ops/conv_pallas.py:91",
+        module="conv3x3", counter="launches_cuda_core"),
 }
 
 
@@ -652,15 +685,19 @@ def phase_build() -> None:
     from x_as_supervision_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build(*KERNELS)
-    for name in KERNELS:
+    sources = {meta.get("module", name) for name, meta in KERNELS.items()}
+    _build.build(*sources)
+    for name in sources:
         _build.load(name)
     emit(phase="build", seconds=time.perf_counter() - t0)
-    # ptxas -v of the decode forward: each variant's registers and spills
-    out = _build.compiler_output.get("integral_marginals", "not built here")
-    emit(phase="ptxas", kernel="integral_marginals",
-         lines=[ln.strip() for ln in out.splitlines()
-                if "registers" in ln or "spill" in ln or "Compiling" in ln])
+    # ptxas -v of the decode forward and the conv: each variant's registers
+    # and spills
+    for name in ("integral_marginals", "conv3x3"):
+        out = _build.compiler_output.get(name, "not built here")
+        emit(phase="ptxas", kernel=name,
+             lines=[ln.strip() for ln in out.splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling" in ln])
 
 
 def _marginals_case(dtype, batch: int) -> dict:
@@ -816,22 +853,32 @@ def _marginals_bwd_case(dtype, batch: int) -> dict:
 
 
 def _conv_case(dtype, batch: int, cin: int, cout: int, side: int,
-               stride: int) -> dict:
+               stride: int, width: int | None = None) -> dict:
+    """The physique conv at (batch, cin, side, width (side by default))
+    into `cout` channels against its plain version, its launch counted on
+    the path conv3x3_path gives it."""
     import torch
     import torch.nn.functional as F
 
     from x_as_supervision_tpu_torch.ops.conv3x3 import (
-        channels_last, conv3x3_kernel, conv3x3_path, conv3x3_plain)
+        PATH_COUNTER, channels_last, conv3x3_kernel, conv3x3_path,
+        conv3x3_plain)
 
+    width = side if width is None else width
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     # channels-last, as the physique net hands it over
-    x = channels_last(torch.randn((batch, cin, side, side), generator=gen,
+    x = channels_last(torch.randn((batch, cin, side, width), generator=gen,
                                   device="cuda").to(dtype))
     w = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
          * (2 / (9 * cin)) ** 0.5)
     b = torch.randn(cout, generator=gen, device="cuda") * 0.1
     path = conv3x3_path(dtype, cin, cout)
+    counter = PATH_COUNTER[path]
+    before = (conv3x3_kernel.launches, getattr(conv3x3_kernel, counter))
     y = conv3x3_kernel(x, w, b, stride)
+    check((conv3x3_kernel.launches, getattr(conv3x3_kernel, counter))
+          == (before[0] + 1, before[1] + 1),
+          f"conv3x3 {dtype} {cin}->{cout}: not counted on {counter}")
     ry = conv3x3_plain(x, w, b, stride)
     torch.cuda.synchronize()
     err = (y.float() - ry.float()).abs().max().item()
@@ -839,8 +886,8 @@ def _conv_case(dtype, batch: int, cin: int, cout: int, side: int,
     # fp32: the same products summed in another order over 9*Cin terms;
     # bf16: y is then rounded to bf16, one step (2^-8) apart at most
     tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * ymax
-    check(err <= tol, f"conv3x3 kernel {dtype} {cin}->{cout} at {side}^2 "
-                      f"s{stride} ({path}): max|err| {err} > {tol}")
+    check(err <= tol, f"conv3x3 kernel {dtype} {cin}->{cout} at {side}x"
+                      f"{width} s{stride} ({path}): max|err| {err} > {tol}")
     elt = x.element_size()
     out = y.numel()
     nbytes = (x.numel() + out) * elt + w.numel() * elt + cout * 4
@@ -852,7 +899,7 @@ def _conv_case(dtype, batch: int, cin: int, cout: int, side: int,
     x_nchw = x.contiguous()
     case = dict(
         name="conv3x3", dtype=_kind(dtype), path=path,
-        shape=[batch, cin, side, side], cout=cout, stride=stride,
+        shape=[batch, cin, side, width], cout=cout, stride=stride,
         max_abs_err=err,
         ms=cuda_ms(lambda: conv3x3_kernel(x, w, b, stride), iters=10),
         plain_ms=cuda_ms(lambda: conv3x3_plain(x, w, b, stride), iters=10),
@@ -939,6 +986,11 @@ def phase_kernels() -> list[dict]:
             for cin, cout, side, stride in CONV_SHAPES:
                 cases.append(_conv_case(dtype, TRAIN_IMAGES, cin, cout, side,
                                         stride))
+            for cin, cout, side, stride in TP_CONV_SHAPES:
+                cases.append(_conv_case(dtype, TP_BATCH * CAMERAS, cin, cout,
+                                        side, stride))
+            for b, cin, cout, h, w, stride in RAGGED_CONV_SHAPES:
+                cases.append(_conv_case(dtype, b, cin, cout, h, stride, w))
             for c, side, _ in LINK_SHAPES:
                 cases.append(_link_grad_case(dtype, TRAIN_IMAGES, c, side))
             torch.cuda.synchronize()
@@ -1781,10 +1833,15 @@ def _train_parity(cfg: dict, phase: str, config: str,
     want = train_step(cpu_state, cpu_batch, rot_draws=draws("cpu"))
     set_tf32(False)
     try:
+        _reset_counts()
         got = train_step(card_state, card_batch, rot_draws=draws("cuda"))
         torch.cuda.synchronize()
     finally:
         set_tf32(True)
+    # the fp32 step's launches: links on the FMA path, the physique convs
+    # on the thin and FMA kernels
+    launches, paths = _check_train_launches(1, phase, cfg,
+                                            dtype=torch.float32)
     loss_err = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
                 for k in want}
     # fp32 through ResNet-50, the decode, the renderer and the physique
@@ -1830,7 +1887,8 @@ def _train_parity(cfg: dict, phase: str, config: str,
                   param_max_diff_over_largest_update=ratio,
                   param_median_diff_over_largest_update=median,
                   param_share_over_tenth_update=over,
-                  running_stats_rel_err=stats_err)
+                  running_stats_rel_err=stats_err,
+                  launches_per_step=launches, path_launches_per_step=paths)
     emit(**record)
     return record
 
@@ -1843,21 +1901,21 @@ def _reset_counts() -> None:
             setattr(fn, attr, 0)
 
 
-def _launches(cfg: dict, mode=None) -> tuple[dict, dict]:
-    """One bf16 train step's launches of `cfg` by kernel and by path, under
-    its remat mode or `mode` (x_as_supervision_tpu_torch/checks.py:
-    train_launches)."""
+def _launches(cfg: dict, mode=None, dtype=None) -> tuple[dict, dict]:
+    """One train step's launches of `cfg` by kernel and by path, in bf16 or
+    `dtype`, under its remat mode or `mode` (x_as_supervision_tpu_torch/
+    checks.py:train_launches)."""
     from x_as_supervision_tpu_torch.checks import train_launches
 
-    return train_launches(cfg, mode)
+    return train_launches(cfg, mode, dtype)
 
 
-def _check_train_launches(steps: int, what: str, cfg: dict, mode=None
-                          ) -> tuple[dict, dict]:
+def _check_train_launches(steps: int, what: str, cfg: dict, mode=None,
+                          dtype=None) -> tuple[dict, dict]:
     """The launches since _reset_counts, checked against `cfg`'s per step
-    in bf16 (under its remat mode or `mode`) over `steps` steps; returns
-    them per step, by kernel and by path."""
-    want, want_paths = _launches(cfg, mode)
+    in bf16 or `dtype` (under its remat mode or `mode`) over `steps` steps;
+    returns them per step, by kernel and by path."""
+    want, want_paths = _launches(cfg, mode, dtype)
     counters = _counters()
     launches = {name: fn.launches for name, fn in counters.items()}
     for name, per_step in want.items():
@@ -4015,8 +4073,8 @@ def phase_dp(card: str, root: str) -> dict:
 def _tp_kernel_cases() -> list[dict]:
     """The kernels at a tensor-parallel rank's shard shapes (B = 64, the
     pair's 4 cameras x 16) against their plain versions, fp32 with TF32
-    off and bf16: the link into its Cout shard, and the physique conv that
-    the split sends to the CUDA cores."""
+    off and bf16: the link into its Cout shard, and the physique conv's
+    32->16 shard (bf16: tensor cores; fp32: the FMA kernel)."""
     import torch
 
     batch = TP_BATCH * CAMERAS
@@ -4032,9 +4090,9 @@ def _tp_kernel_cases() -> list[dict]:
         set_tf32(True)
     for case in cases:
         emit(phase="tp_kernel", **case)
-    conv = [c for c in cases if c["name"] == "conv3x3"]
-    check(all(c["path"] == "cuda_core" for c in conv),
-          f"tp kernels: the 32->16 conv took {[c['path'] for c in conv]}")
+    conv = [(c["dtype"], c["path"]) for c in cases if c["name"] == "conv3x3"]
+    check(sorted(conv) == [("bf16", "tensor_core"), ("fp32", "cuda_core")],
+          f"tp kernels: the 32->16 conv took {conv}")
     return cases
 
 
@@ -5050,7 +5108,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         train = timed("train", phase_train)
         remat = timed("remat", phase_remat, card)
-        timed("train_parity", phase_train_parity)
+        train_parity = timed("train_parity", phase_train_parity)
         train_eval = timed("train_eval", phase_train_eval)
         timed("eval_parity", phase_eval_parity)
         timed("real_data", phase_real_data, card)
@@ -5079,8 +5137,17 @@ def main() -> int:
         "conv3x3": lambda c: (c["dtype"] == "bf16"
                               and c["shape"][1:] == [32, 256, 256]
                               and c["cout"] == 32),
+        "conv3x3_thin": lambda c: (c["dtype"] == "bf16"
+                                   and c["shape"] == [TRAIN_IMAGES, 32, 256,
+                                                      256]
+                                   and c["cout"] == 1),
+        # the FMA kernel's path is the fp32 step's (phase 7)
+        "conv3x3_fma": lambda c: (c["dtype"] == "fp32"
+                                  and c["shape"] == [TRAIN_IMAGES, 32, 256,
+                                                     256]
+                                  and c["cout"] == 32),
     }
-    # and at the mono step's (batch 32, bf16)
+    # and at the mono step's (batch 32, bf16; fp32 for the FMA kernel)
     mono_case = {
         "integral_marginals": lambda c: (c["dtype"] == "bf16"
                                          and c["shape"][0] == TRAIN_BATCH),
@@ -5091,47 +5158,72 @@ def main() -> int:
         "conv3x3": lambda c: (c["dtype"] == "bf16"
                               and c["shape"] == [TRAIN_BATCH, 32, 256, 256]
                               and c["cout"] == 32),
+        "conv3x3_thin": lambda c: (c["dtype"] == "bf16"
+                                   and c["shape"] == [TRAIN_BATCH, 32, 256,
+                                                      256]
+                                   and c["cout"] == 1),
+        "conv3x3_fma": lambda c: (c["dtype"] == "fp32"
+                                  and c["shape"] == [TRAIN_BATCH, 32, 256,
+                                                     256]
+                                  and c["cout"] == 32),
     }
     kernels = []
     for name, meta in KERNELS.items():
+        # conv3x3's rows: the cases and launches of their own path
+        module = meta.get("module", name)
         case = next(c for c in cases
-                    if c["name"] == name and main_case[name](c))
+                    if c["name"] == module and main_case[name](c))
         mcase = next(c for c in cases + mono["kernel_cases"]
-                     if c["name"] == name and mono_case[name](c))
+                     if c["name"] == module and mono_case[name](c))
+        if name == "conv3x3_fma":
+            # the fp32 step of phase 7 (one step; no bf16 step runs it)
+            launches = train_parity["path_launches_per_step"][module][
+                meta["counter"]]
+        elif "counter" in meta:
+            launches = train["path_launches_per_step"][module][
+                meta["counter"]] * TRAIN_STEPS
+        else:
+            launches = train["launches"][name]
+        check(launches > 0, f"{name}: no launch on its path")
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=train["launches"][name],
+            replaces=meta["replaces"], launches=launches,
             max_abs_err=case["max_abs_err"], ms=case["ms"],
             plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
             bound_by=case["bound_by"], library_ms=case["library_ms"],
             dtype=case["dtype"], shape=case["shape"],
             library_nchw_ms=case.get("library_nchw_ms"),
-            path_launches=train["path_launches_per_step"].get(name),
-            remat_launches={mode: r["launches_per_step"][name]
+            # the launch counts below are the wrapper's (all of conv3x3's
+            # paths together), path_launches by path
+            counts_of=module,
+            path_launches=train["path_launches_per_step"].get(module),
+            fp32_step_path_launches=train_parity[
+                "path_launches_per_step"].get(module),
+            remat_launches={mode: r["launches_per_step"][module]
                             for mode, r in remat["modes"].items()},
-            serve_launches=serve["launches"].get(name),
+            serve_launches=serve["launches"].get(module),
             eval_launches=train_eval["modes"]["best"][
-                "launches_per_batch"][name],
-            variants_launches=variants["launches_per_step"][name],
-            mono_launches=mono["train_cli"]["launches_per_step"][name],
-            eval2d_launches=mono["eval2d"]["launches_per_batch"][name],
-            dp_launches=dp["train_cli"]["launches_per_step"][name],
+                "launches_per_batch"][module],
+            variants_launches=variants["launches_per_step"][module],
+            mono_launches=mono["train_cli"]["launches_per_step"][module],
+            eval2d_launches=mono["eval2d"]["launches_per_batch"][module],
+            dp_launches=dp["train_cli"]["launches_per_step"][module],
             tp_launches=tp["train_cli"]["ranks"][0]["launches_per_step"][
-                name],
+                module],
             tp_path_launches=tp["train_cli"]["ranks"][0][
-                "path_launches_per_step"].get(name),
+                "path_launches_per_step"].get(module),
             campaign_launches=dict(
-                s1_step=campaign["s1"]["launches_per_step"][name],
-                s2_step=campaign["s2"]["launches_per_step"][name],
-                eval_batch=campaign["s1_eval"]["launches_per_batch"][name]),
+                s1_step=campaign["s1"]["launches_per_step"][module],
+                s2_step=campaign["s2"]["launches_per_step"][module],
+                eval_batch=campaign["s1_eval"]["launches_per_batch"][module]),
             launch_launches=dict(
-                train_step=launch["plain"]["launches_per_step"][name]),
+                train_step=launch["plain"]["launches_per_step"][module]),
             tools_launches=dict(
                 serve_forward=tools["serve"]["rows"][-1][
-                    "launches_per_forward"][name],
-                control_step=tools["control"]["launches_per_step"][name],
+                    "launches_per_forward"][module],
+                control_step=tools["control"]["launches_per_step"][module],
                 bench_conv_bn_call=tools["conv_bn"]["rows"][0][
-                    "launches_per_call"][name]),
+                    "launches_per_call"][module]),
             mono_shape=mcase["shape"], mono_max_abs_err=mcase["max_abs_err"],
             mono_ms=mcase["ms"], mono_plain_ms=mcase["plain_ms"],
             mono_bound_ms=mcase["bound_ms"],

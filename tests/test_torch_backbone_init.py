@@ -31,6 +31,7 @@ from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
 from x_as_supervision_tpu_torch.models.detector import build_detector
 from x_as_supervision_tpu_torch.train.factory import flagship_config
 from x_as_supervision_tpu_torch.train.trainer import Trainer
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 DEPTH = 18  # the tiny flagship config's backbone
 

@@ -33,6 +33,7 @@ from x_as_supervision_tpu_torch.train.factory import (
     build_gan_spec,
     flagship_config,
 )
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 TINY = dict(name="resnet_multi", num_kp=4, depth_dim=8, num_hypo=2,
             neighbor_size=3, num_layers=18)

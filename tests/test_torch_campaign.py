@@ -35,6 +35,7 @@ from x_as_supervision_tpu_torch import checks
 from x_as_supervision_tpu_torch.tools import campaign_manifest as M
 from x_as_supervision_tpu_torch.tools import render_campaign as R
 from x_as_supervision_tpu_torch.tools import surreal_constructor as SC
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 0

@@ -17,6 +17,7 @@ from x_as_supervision_tpu_torch.ops.conv_bn import (
     fused_bn_relu_conv,
     make_stats_fold,
 )
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 
 def _case(b, h, w, c, co, seed=0, shift_mean=0.0):

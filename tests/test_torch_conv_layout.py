@@ -3,8 +3,11 @@ wrappers' weight packing (plain torch) contracted with an explicit im2col of
 a seeded input, in each kernel's K order, reproduces the plain versions;
 and which tile or path each shape takes.
 
-- conv3x3, tensor cores: w packed (Cin/32, 9, Cout, 32), K = (slice, tap,
-  channel of the slice); CUDA cores: (Cin, 9, Cout), K = (channel, tap).
+- conv3x3, tensor cores: w packed (ceil(Cin/32), 9, Cout, 32), K = (slice,
+  tap, channel of the slice), zeros past Cin; thin: (C, 9) fp32, K =
+  (channel, tap), C the side that is not 1 (the kernel rounds it to the
+  working type); FMA: (Cin padded to 8, 9, Cout padded to the block's N)
+  fp32, K = (channel, tap).
 - link: bf16 (9, Cout, Cin), K = (tap, channel), K-major per output channel
   for wgmma; fp32 (9, Cin, Cout). The halo is zero after the activation.
 """
@@ -15,11 +18,14 @@ import torch
 
 from x_as_supervision_tpu_torch.ops.conv3x3 import (
     CC,
+    FMA_KC,
     TC,
     TC_SLICE,
+    THIN,
     channels_last,
     conv3x3_path,
     conv3x3_plain,
+    fma_block_n,
     pack_weights,
 )
 from x_as_supervision_tpu_torch.ops.conv_bn import (
@@ -71,27 +77,47 @@ _CC_CASES = [
     (2, 5, 7, 9, 13, 1),     # odd channel counts
     (1, 6, 3, 11, 9, 2),
 ]
+# a last slice of 16 input channels (zero-filled to 32) and 16 output
+# channels: a tensor-parallel rank's shards
+_TC16_CASES = [(2, 16, 32, 9, 11, 1), (1, 48, 16, 10, 7, 2),
+               (1, 32, 16, 5, 6, 1)]
+_THIN_CASES = [(2, 1, 32, 8, 9, 1), (1, 32, 1, 7, 8, 2), (1, 40, 1, 9, 5, 1),
+               (2, 1, 72, 6, 7, 2), (1, 1, 1, 5, 5, 1)]
 
 
 @pytest.mark.parametrize("path,b,cin,cout,h,w,stride",
-                         [(TC, *c) for c in _TC_CASES]
-                         + [(CC, *c) for c in _TC_CASES + _CC_CASES])
+                         [(TC, *c) for c in _TC_CASES + _TC16_CASES]
+                         + [(CC, *c) for c in _TC_CASES + _CC_CASES]
+                         + [(THIN, *c) for c in _THIN_CASES])
 def test_conv3x3_packing_in_kernel_k_order(path, b, cin, cout, h, w, stride):
     x, wt, bias = _conv_case(b, cin, cout, h, w)
     packed = pack_weights(torch.from_numpy(wt), path).numpy()
     cols = _im2col(x, stride)  # (B, Ho, Wo, Cin, ky, kx)
     pix = cols.shape[:3]
     if path == TC:
-        s = cin // TC_SLICE
+        s = -(-cin // TC_SLICE)
+        assert packed.shape == (s, 9, cout, TC_SLICE)
+        assert not packed[-1, ..., cin - (s - 1) * TC_SLICE:].any()
+        cols = np.pad(cols, [(0, 0)] * 3 + [(0, s * TC_SLICE - cin)]
+                      + [(0, 0)] * 2)  # the kernel's zero-filled halo
         a = cols.reshape(*pix, s, TC_SLICE, 3, 3).transpose(
             0, 1, 2, 3, 5, 6, 4)
         wk = packed.transpose(0, 1, 3, 2)  # (slice, tap, channel, Cout)
-        assert packed.shape == (s, 9, cout, TC_SLICE)
+        k = 9 * s * TC_SLICE
+    elif path == THIN:
+        assert packed.shape == (max(cin, cout), 9)
+        assert packed.dtype == np.float32
+        if cin == 1:  # (Cout, tap)
+            a, wk, k = cols, packed.T, 9
+        else:  # (channel, tap) into one output
+            a, wk, k = cols, packed.reshape(9 * cin, 1), 9 * cin
     else:
-        a = cols
-        wk = packed  # (channel, tap, Cout)
-        assert packed.shape == (cin, 9, cout)
-    y = a.reshape(-1, 9 * cin) @ wk.reshape(9 * cin, cout) + bias
+        bn = fma_block_n(cout)
+        assert packed.shape == (-(-cin // FMA_KC) * FMA_KC, 9,
+                                -(-cout // bn) * bn)
+        assert not packed[cin:].any() and not packed[:, :, cout:].any()
+        a, wk, k = cols, packed[:cin, :, :cout], 9 * cin  # (channel, tap, Cout)
+    y = a.reshape(-1, k) @ wk.reshape(k, cout) + bias
     want = conv3x3_plain(torch.from_numpy(x), torch.from_numpy(wt),
                          torch.from_numpy(bias), stride)
     _close(y.reshape(*pix, cout), want.permute(0, 2, 3, 1).numpy())
@@ -134,16 +160,24 @@ def test_link_packing_in_kernel_k_order(dtype, b, cin, cout, h, w,
     assert (np.abs(stats - want_s.numpy()) <= 1e-5 * mags).all()
 
 
-@pytest.mark.parametrize("path", [TC, CC])
+@pytest.mark.parametrize("path", [TC, CC, THIN])
 def test_conv3x3_packing_takes_the_input_gradients_weights(path):
     """The stride-1 input gradient packs flipped, transposed (so not
-    contiguous) weights, cast to the working type on the way."""
-    w = torch.from_numpy(_conv_case(1, 64, 32, 4, 4)[1])
+    contiguous) weights, their values rounded to the working type on the
+    way (the FMA kernel keeps them in fp32; the thin kernel takes fp32
+    and rounds them itself)."""
+    cin = 1 if path == THIN else 64
+    w = torch.from_numpy(_conv_case(1, cin, 32, 4, 4)[1])
     wt = w.flip(2, 3).transpose(0, 1)
-    assert not wt.is_contiguous()
+    # (1, 32, 3, 3) is contiguous whatever its strides
+    assert path == THIN or not wt.is_contiguous()
     got = pack_weights(wt, path, torch.bfloat16)
-    want = pack_weights(wt.contiguous().bfloat16(), path)
-    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert got.dtype == (torch.bfloat16 if path == TC else torch.float32)
+    if path == THIN:
+        want = wt.contiguous().reshape(32, 9)
+    else:
+        want = pack_weights(wt.contiguous().bfloat16(), path)
+    assert torch.equal(got, want)
 
 
 def test_link_tiles_by_shape():
@@ -191,16 +225,38 @@ def test_link_regions_cover_each_pixel_once(bm, h, w):
 
 def test_conv3x3_path_by_shape():
     bf, f32 = torch.bfloat16, torch.float32
-    # the flagship physique net: 14 tensor-core convs and 4 on the CUDA
-    # cores per step (10 forwards, 8 stride-1 input gradients)
+    # the flagship physique net: 14 tensor-core convs and 4 on the thin
+    # kernel per step (10 forwards, 8 stride-1 input gradients)
     fwd = [(1, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128),
            (128, 64), (64, 64), (64, 32), (32, 1)]
     dgrad = [(co, ci) for ci, co in fwd[:2] + fwd[3:4] + fwd[5:]]
     assert len(dgrad) == 8
     paths = [conv3x3_path(bf, ci, co) for ci, co in fwd + dgrad]
-    assert paths.count(TC) == 14 and paths.count(CC) == 4
+    assert paths.count(TC) == 14 and paths.count(THIN) == 4
+    assert [p for p, (ci, co) in zip(paths, fwd + dgrad) if 1 in (ci, co)
+            ] == [THIN] * 4
+    # in fp32 the same 14 on the FMA kernel, the thin 4 on the thin one
+    paths = [conv3x3_path(f32, ci, co) for ci, co in fwd + dgrad]
+    assert paths.count(CC) == 14 and paths.count(THIN) == 4
+    # a tensor-parallel rank (model 2): the forwards on their Cout shards
+    # (1->16, 16->16, 32->32, ...; 64->16 and 32->16 into the last two),
+    # 32->1 replicated; the input gradients of the stride-1 ones swapped
+    tp_fwd = [(1, 16), (32, 16), (32, 32), (64, 32), (64, 64), (128, 64),
+              (128, 32), (64, 32), (64, 16), (32, 1)]
+    tp_dgrad = [(co, ci) for ci, co in tp_fwd[:2] + tp_fwd[3:4] + tp_fwd[5:]]
+    paths = [conv3x3_path(bf, ci, co) for ci, co in tp_fwd + tp_dgrad]
+    assert paths.count(TC) == 14 and paths.count(THIN) == 4
+    for cin, cout in ((32, 16), (64, 16), (16, 32), (16, 64)):
+        assert conv3x3_path(bf, cin, cout) == TC
+        assert conv3x3_path(f32, cin, cout) == CC
+    for cin, cout in ((1, 32), (32, 1), (1, 1), (40, 1), (1, 72)):
+        assert conv3x3_path(bf, cin, cout) == conv3x3_path(
+            f32, cin, cout) == THIN
     assert conv3x3_path(f32, 128, 128) == CC
     assert conv3x3_path(bf, 5, 7) == CC
+    assert conv3x3_path(bf, 24, 40) == CC  # off the multiples of 16
+    assert [fma_block_n(c) for c in (3, 16, 17, 32, 33, 64, 128)] == [
+        16, 16, 32, 32, 64, 64, 64]
 
 
 def test_channels_last_gives_nhwc_strides():

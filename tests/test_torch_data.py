@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 cv2 = pytest.importorskip("cv2")
 pytest.importorskip("scipy.io")

@@ -24,6 +24,7 @@ from x_as_supervision_tpu.tools.convert_torch_resnet import (
 from x_as_supervision_tpu_torch import weights
 from x_as_supervision_tpu_torch.models import resnet as R
 from x_as_supervision_tpu_torch.models.detector import build_detector
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 DET50 = dict(name="resnet_multi", num_kp=18, depth_dim=8, num_hypo=3,
              neighbor_size=3, num_layers=50)

@@ -40,6 +40,7 @@ from x_as_supervision_tpu_torch.models.discriminator import (
 from x_as_supervision_tpu.models.discriminator import (
     sym_normalize as jax_sym_normalize,
 )
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 PARENTS = [0, 0, 1, 2, 0, 4, 5, 0, 17, 8, 9, 17, 11, 12, 17, 14, 15, 7]
 PARAMS = dict(name="res_sage_gcn_decouple", input_dim=16, hidden_dim=16,

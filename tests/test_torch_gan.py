@@ -22,7 +22,7 @@ from x_as_supervision_tpu.models.composed import (
     generator_forward as jax_gen_forward,
 )
 from x_as_supervision_tpu.train.factory import build_gan_spec as jax_spec
-from x_as_supervision_tpu.train.state import init_train_state, make_optimizers
+from x_as_supervision_tpu.train.state import make_optimizers
 from x_as_supervision_tpu_torch import weights
 from x_as_supervision_tpu_torch.models.composed import (
     discriminator_forward,
@@ -33,6 +33,7 @@ from x_as_supervision_tpu_torch.train.factory import (
     flagship_config,
 )
 from x_as_supervision_tpu_torch.train.trainer import to_device
+from torch_parity import jax_init_state
 
 BATCH = 2
 
@@ -42,14 +43,13 @@ def _np(tree):
 
 
 @pytest.fixture(scope="module")
-def gan():
+def gan(tmp_path_factory):
     cfg = _flagship_config(tiny=True)
     batch = SyntheticPoseDataset(num_samples=BATCH, cam_id_list=(0, 1),
                                  patch_size=64).device_batch(0, BATCH)
     spec = jax_spec(cfg)
     opt_det, opt_disc = make_optimizers(cfg["train_params"], 10)
-    js = init_train_state(spec, jax.random.PRNGKey(0), batch, opt_det,
-                          opt_disc)
+    js = jax_init_state(tmp_path_factory, cfg, batch, opt_det, opt_disc, 10)
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
 
     def gen_loss(gen_params, disc_params):

@@ -29,7 +29,7 @@ from x_as_supervision_tpu.models.composed import (
     generator_forward as jax_gen_forward,
 )
 from x_as_supervision_tpu.train.factory import build_gan_spec as jax_spec
-from x_as_supervision_tpu.train.state import init_train_state, make_optimizers
+from x_as_supervision_tpu.train.state import make_optimizers
 from x_as_supervision_tpu_torch import weights
 from x_as_supervision_tpu_torch.models.composed import (
     discriminator_forward,
@@ -40,6 +40,7 @@ from x_as_supervision_tpu_torch.train.factory import (
     flagship_config,
 )
 from x_as_supervision_tpu_torch.train.trainer import to_device
+from torch_parity import jax_init_state
 
 BATCH = 2
 GEN_KEY, DISC_KEY = 1, 2
@@ -70,15 +71,15 @@ def rot_draws_of(k_gen, k_disc, nc: int, b: int, nh: int) -> dict:
 
 
 @pytest.fixture(scope="module")
-def gan():
+def gan(tmp_path_factory):
     cfg = aug_config(_flagship_config(tiny=True))
     batch = SyntheticPoseDataset(num_samples=BATCH, cam_id_list=(0, 1),
                                  patch_size=64).device_batch(0, BATCH)
     spec = jax_spec(cfg)
     assert spec.use_aug
     opt_det, opt_disc = make_optimizers(cfg["train_params"], 10)
-    js = init_train_state(spec, jax.random.PRNGKey(0), batch, opt_det,
-                          opt_disc)
+    js = jax_init_state(tmp_path_factory, cfg, batch, opt_det, opt_disc, 10,
+                        jit=True)
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
 
     def gen_loss(det_params, disc_params):

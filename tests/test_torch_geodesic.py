@@ -16,6 +16,7 @@ import pytest
 from x_as_supervision_tpu.data import geodesic as JG
 from x_as_supervision_tpu_torch.data import geodesic as PG
 from x_as_supervision_tpu_torch.ops import _build
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 PARAMS = [2, 1, 3, 20, 0.0]  # the shipped configs' geodesic_param_list
 

@@ -21,6 +21,7 @@ from x_as_supervision_tpu_torch.ops import geometry as G
 from x_as_supervision_tpu_torch.tools import humanoid as H
 from x_as_supervision_tpu_torch.tools import prng
 from x_as_supervision_tpu_torch.tools import surreal_constructor as SC
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 ARRAYS = ("v_template", "shapedirs", "posedirs", "j_regressor", "weights",
           "betas_mean")

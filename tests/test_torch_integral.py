@@ -18,6 +18,7 @@ from x_as_supervision_tpu_torch.ops.integral_kernel import (
     integral_marginals,
     marginals_plain,
 )
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 # fp32 throughout: the same math, summed in another order
 MARGINAL_ATOL = 1e-6

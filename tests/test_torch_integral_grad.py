@@ -19,6 +19,7 @@ from x_as_supervision_tpu_torch.ops.integral_kernel import (
     marginals_backward,
     marginals_backward_plain,
 )
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 K, D = 3, 8
 

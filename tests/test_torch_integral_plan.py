@@ -27,6 +27,7 @@ from x_as_supervision_tpu_torch.ops.integral_kernel import (
     marginals_plain,
     marginals_plan,
 )
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 H100_SMS = 132
 NEG = -1e30  # the kernel's running-max start

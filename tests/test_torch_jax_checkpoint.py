@@ -75,6 +75,7 @@ from x_as_supervision_tpu_torch.train.factory import (
 )
 from x_as_supervision_tpu_torch.train.state import TrainState, train_step
 from x_as_supervision_tpu_torch.train.trainer import to_device
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 2

@@ -15,7 +15,10 @@ import torch
 
 from x_as_supervision_tpu_torch.models.detector import build_detector
 from x_as_supervision_tpu_torch.ops.conv3x3 import (
+    CC,
+    PATH_COUNTER,
     TC,
+    THIN,
     conv3x3,
     conv3x3_kernel,
     conv3x3_path,
@@ -295,18 +298,36 @@ def _conv_case(dev, b, cin, cout, h, w, dtype, seed=3):
     (2, 32, 64, 256, 256, 1),
     # tensor-core tiles cut by odd sides, and 32-channel output blocks
     (2, 32, 64, 37, 45, 1), (2, 64, 32, 29, 51, 2), (1, 96, 96, 19, 23, 1),
+    # the thin kernel: B = 1 and odd sides, both strides, 1 -> 1, Cin off
+    # its 64-byte passes (40: two in bf16, three in fp32; 12: bf16 rows not
+    # 16-byte aligned), Cout off a warp's vectors (72) and above 32 vectors
+    # (fp32 160: two channel groups)
+    (1, 1, 32, 33, 47, 1), (3, 32, 1, 37, 45, 2), (2, 1, 16, 64, 64, 2),
+    (1, 1, 1, 9, 10, 1), (2, 40, 1, 19, 23, 1), (2, 12, 1, 17, 17, 1),
+    (2, 1, 72, 20, 20, 1), (1, 1, 160, 8, 8, 1),
+    # a tensor-parallel rank's shards (bf16: the tensor cores' 16-channel
+    # instance and a zero-filled last slice of 16), odd sides
+    (2, 32, 16, 64, 64, 1), (2, 64, 16, 64, 64, 1), (2, 16, 32, 64, 64, 1),
+    (2, 16, 64, 64, 64, 1), (1, 16, 48, 37, 29, 2), (2, 48, 16, 21, 19, 2),
+    # the FMA kernel off its block multiples (bf16 too: 24 and 20 channels)
+    (2, 24, 40, 45, 67, 1), (1, 20, 12, 31, 33, 2), (2, 8, 72, 19, 23, 1),
 ])
 def test_conv3x3_kernel_matches_plain(dev, dtype, b, cin, cout, h, w, stride):
     x, wt, bias = _conv_case(dev, b, cin, cout, h, w, dtype)
-    before = (conv3x3_kernel.launches, conv3x3_kernel.launches_tc,
-              conv3x3_kernel.launches_cuda_core)
+    path = conv3x3_path(dtype, cin, cout)
+    counters = ["launches"] + list(PATH_COUNTER.values())
+    before = [getattr(conv3x3_kernel, c) for c in counters]
     got = conv3x3_kernel(x, wt, bias, stride)
     torch.cuda.synchronize()
-    tc = int(conv3x3_path(dtype, cin, cout) == TC)
-    assert tc == int(dtype == torch.bfloat16 and min(cin, cout) >= 32)
-    assert (conv3x3_kernel.launches, conv3x3_kernel.launches_tc,
-            conv3x3_kernel.launches_cuda_core) == (
-        before[0] + 1, before[1] + tc, before[2] + 1 - tc)
+    if 1 in (cin, cout):
+        assert path == THIN
+    elif dtype == torch.bfloat16 and cin % 16 == 0 and cout % 16 == 0:
+        assert path == TC
+    else:
+        assert path == CC
+    want_counts = [n + (c in ("launches", PATH_COUNTER[path]))
+                   for c, n in zip(counters, before)]
+    assert [getattr(conv3x3_kernel, c) for c in counters] == want_counts
     assert got.is_contiguous(memory_format=torch.channels_last)
     want = conv3x3_plain(x, wt, bias, stride)
     assert got.dtype == dtype and got.shape == want.shape
@@ -315,6 +336,40 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, b, cin, cout, h, w, stride):
     # bf16: y is then rounded to bf16, one step (2^-8) apart at most
     tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * ymax
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cin,cout,h,w,stride", [
+    (1, 1, 32, 17, 23, 1), (2, 32, 1, 16, 21, 2), (2, 16, 32, 19, 15, 1),
+    (1, 32, 16, 20, 17, 2),
+])
+def test_conv3x3_gradients_by_path_match_plain(dev, dtype, b, cin, cout, h,
+                                               w, stride):
+    """Forward and gradients of the thin and narrow convs: the stride-1
+    input gradient is the same kernel (1->32's is 32->1, 32->16's 16->32),
+    each launch counted on its path."""
+    x, wt, bias = _conv_case(dev, b, cin, cout, h, w, dtype)
+    g = torch.randn((b, cout, (h - 1) // stride + 1, (w - 1) // stride + 1),
+                    device=dev).to(dtype)
+    args = [t.clone().requires_grad_(True) for t in (x, wt, bias)]
+    fwd = PATH_COUNTER[conv3x3_path(dtype, cin, cout)]
+    bwd = PATH_COUNTER[conv3x3_path(dtype, cout, cin)]
+    before = {c: getattr(conv3x3_kernel, c) for c in PATH_COUNTER.values()}
+    got = torch.autograd.grad(conv3x3(*args, stride), args, g)
+    want_counts = dict(before)
+    want_counts[fwd] += 1
+    if stride == 1:
+        want_counts[bwd] += 1
+    assert {c: getattr(conv3x3_kernel, c) for c in PATH_COUNTER.values()
+            } == want_counts
+    args = [t.clone().requires_grad_(True) for t in (x, wt, bias)]
+    want = torch.autograd.grad(conv3x3_plain(*args, stride), args, g)
+    for a, r in zip(got, want):
+        # fp32: sums of up to B*H*W terms in another order; bf16: the
+        # input gradient rounded to bf16 on both sides (one step, 2^-8)
+        tol = (1e-4 if dtype == torch.float32 else 2 ** -7) * r.float(
+            ).abs().max().item()
+        torch.testing.assert_close(a.float(), r.float(), rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("stride", [1, 2])
@@ -377,11 +432,12 @@ def test_kernels_raise_on_unsupported_cuda_input(dev):
         conv3x3_kernel(torch.zeros((1, 2, 4, 4), device=dev),
                        torch.zeros((3, 2, 3, 3), device=dev),
                        torch.zeros(3, device=dev), 3)
-    with pytest.raises(ValueError):  # tensor-core shape, Cin % 32 != 0
-        conv3x3_kernel(torch.zeros((1, 40, 4, 4), device=dev,
-                                   dtype=torch.bfloat16),
-                       torch.zeros((64, 40, 3, 3), device=dev),
-                       torch.zeros(64, device=dev))
+    # channels-last x 4 bytes into its storage: not 16-byte aligned
+    x = torch.zeros(1 + 7 * 16, device=dev).as_strided(
+        (1, 7, 4, 4), (112, 1, 28, 7), 1)
+    with pytest.raises(ValueError):
+        conv3x3_kernel(x, torch.zeros((3, 7, 3, 3), device=dev),
+                       torch.zeros(3, device=dev))
 
 
 def test_detector_on_card_matches_cpu(dev):

@@ -26,6 +26,7 @@ import pytest
 from torch_launch import cpu_env, free_port, without_matplotlib
 from x_as_supervision_tpu_torch.checks import result_lines
 from x_as_supervision_tpu_torch.train.factory import flagship_config
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(REPO, "scripts", "torch")

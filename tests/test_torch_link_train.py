@@ -18,6 +18,7 @@ from x_as_supervision_tpu.models.resnet import Bottleneck as JaxBottleneck
 from x_as_supervision_tpu.models.resnet import _BN as JaxBN
 from x_as_supervision_tpu_torch import weights
 from x_as_supervision_tpu_torch.models import resnet as R
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 X_SHAPE = (2, 6, 6, 1024)  # NHWC; the link sees n = 2 * 6 * 6 = 72 pixels
 

@@ -35,13 +35,13 @@ from tensorboard.backend.event_processing.event_accumulator import (
 
 from __graft_entry__ import _flagship_config
 from torch_parity import carry_train_state
+from torch_parity import jax_init_state
 from x_as_supervision_tpu.data.synthetic import SyntheticPoseDataset
 from x_as_supervision_tpu.train.evaluator import Evaluator as JaxEvaluator
 from x_as_supervision_tpu.train.factory import build_gan_spec as jax_spec
 from x_as_supervision_tpu.train.logging import tb_vis as jax_tb_vis
 from x_as_supervision_tpu.train.profiling import StepTimer as JaxStepTimer
 from x_as_supervision_tpu.train.state import (
-    init_train_state,
     make_optimizers,
     make_train_step,
 )
@@ -255,7 +255,7 @@ def test_writer_without_optional_packages(tmp_path):
 
 
 @pytest.fixture(scope="module")
-def fused_step():
+def fused_step(tmp_path_factory):
     """One tiny fp32 fused step with outputs: JAX's, and the port's from
     the same carried state, with and without outputs."""
     cfg = _flagship_config(tiny=True)
@@ -265,8 +265,8 @@ def fused_step():
     device_batch = {k: v for k, v in batch.items() if k != "act"}
     spec = jax_spec(cfg)
     opt_det, opt_disc = make_optimizers(cfg["train_params"], 10)
-    js = init_train_state(spec, jax.random.PRNGKey(0), device_batch,
-                          opt_det, opt_disc)
+    js = jax_init_state(tmp_path_factory, cfg, device_batch, opt_det,
+                        opt_disc, 10)
     step = make_train_step(spec, opt_det, opt_disc)
     ports = []
     for with_outputs in (False, True):

@@ -15,6 +15,7 @@ from x_as_supervision_tpu.ops import losses as JL
 from x_as_supervision_tpu_torch.models.composed import cal_links
 from x_as_supervision_tpu_torch.ops import geometry as TG
 from x_as_supervision_tpu_torch.ops import losses as TL
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 PARENTS = [0, 0, 1, 2, 0, 4, 5, 0, 17, 8, 9, 17, 11, 12, 17, 14, 15, 7]
 

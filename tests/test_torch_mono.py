@@ -29,6 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import jax_init_state
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 cv2 = pytest.importorskip("cv2")
 
@@ -56,7 +58,6 @@ from x_as_supervision_tpu.tools.convert_torch_resnet import (  # noqa: E402
     convert_full_detector,
 )
 from x_as_supervision_tpu.train.state import (  # noqa: E402
-    init_train_state,
     make_optimizers,
     make_train_step,
 )
@@ -329,14 +330,15 @@ def _generator_grads_fp64(cfg: dict, js, batch: dict):
 
 
 @pytest.fixture(scope="module")
-def mono_model():
+def mono_model(tmp_path_factory):
     cfg = _mono(_flagship_config(tiny=True))
     ds = JaxMono(num_samples=BATCH * STEPS, patch_size=64, seed=0)
     batches = [ds.device_batch(i * BATCH, BATCH) for i in range(STEPS)]
     spec = jax_spec(cfg)
     opt_det, opt_disc = make_optimizers(cfg["train_params"], STEPS_PER_EPOCH)
-    js = _conditioned(init_train_state(spec, jax.random.PRNGKey(0),
-                                       batches[0], opt_det, opt_disc))
+    js = _conditioned(jax_init_state(tmp_path_factory, cfg, batches[0],
+                                     opt_det, opt_disc, STEPS_PER_EPOCH,
+                                     jit=True))
     step = make_train_step(spec, opt_det, opt_disc)
     jbatch = jax.tree_util.tree_map(jnp.asarray, batches[0])
     jkeys: list = []

@@ -16,6 +16,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 cv2 = pytest.importorskip("cv2")
 pytest.importorskip("scipy.io")

@@ -18,6 +18,7 @@ from torch_dp import spawn
 from x_as_supervision_tpu_torch.parallel import collectives as C
 from x_as_supervision_tpu_torch.parallel import mesh
 from x_as_supervision_tpu_torch.train.factory import flagship_config
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

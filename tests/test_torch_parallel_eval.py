@@ -37,6 +37,7 @@ from x_as_supervision_tpu.data.synthetic import (
 )
 from x_as_supervision_tpu.train.evaluator import Evaluator as JaxEvaluator
 from x_as_supervision_tpu_torch.checks import AnchoredDataset, result_lines
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 # case: (samples, dataset)
 CASES = {"hm36_even": (2 * BATCH, "hm36"), "hm36_uneven": (3 * BATCH, "hm36"),

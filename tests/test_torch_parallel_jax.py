@@ -49,11 +49,12 @@ from x_as_supervision_tpu.data.synthetic import SyntheticPoseDataset
 from x_as_supervision_tpu.parallel import mesh as M
 from x_as_supervision_tpu.train.factory import build_gan_spec as jax_spec
 from x_as_supervision_tpu.train.state import (
-    init_train_state,
     make_optimizers,
     make_train_step,
 )
 from x_as_supervision_tpu_torch import weights
+from torch_parity import jax_init_state
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 GLOBAL_BATCH = 4
 STEPS = 3
@@ -86,8 +87,8 @@ def jax_run(tmp_path_factory):
     spec = jax_spec(cfg)
     opt_det, opt_disc = make_optimizers(cfg["train_params"], STEPS_PER_EPOCH)
     mesh = M.make_mesh(devices=jax.devices()[:2])
-    js = init_train_state(spec, jax.random.PRNGKey(0), batches[0], opt_det,
-                          opt_disc)
+    js = jax_init_state(tmp_path_factory, cfg, batches[0], opt_det, opt_disc,
+                        STEPS_PER_EPOCH, jit=True)
     js = M.replicate_state(
         js.replace(det_params=_conditioned(js.det_params)), mesh)
     step = make_train_step(spec, opt_det, opt_disc)

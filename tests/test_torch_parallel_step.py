@@ -36,6 +36,7 @@ import pytest
 from torch_dp import spawn
 from x_as_supervision_tpu_torch.data.synthetic import SyntheticPoseDataset
 from x_as_supervision_tpu_torch.train.factory import flagship_config
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 GLOBAL_BATCH = 4
 STEPS = 3

@@ -18,6 +18,7 @@ from x_as_supervision_tpu.tools import render_campaign as JR
 from x_as_supervision_tpu_torch.ops import geometry as G
 from x_as_supervision_tpu_torch.tools import prng
 from x_as_supervision_tpu_torch.tools import render_campaign as R
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 SEEDS = (0, 1, 7, 9973 * 64 + 3, 70001, 2**31 - 1)
 SHAPES = ((), (7,), (64,), (64, 10))

@@ -45,6 +45,8 @@ from x_as_supervision_tpu_torch.train.factory import (
     flagship_config,
 )
 from x_as_supervision_tpu_torch.train.trainer import step_generator, to_device
+from torch_parity import jax_init_state
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 MODES = ("none", "full", "pseudo", "head_decode", "decode")
 BATCH = 2
@@ -131,7 +133,8 @@ def test_launch_reckoning(mode):
     assert launches == dict(zip(names, FLAGSHIP_LAUNCHES[mode]))
     assert paths == {"conv_bn_link": {"launches_wgmma": launches[
                          "conv_bn_link"], "launches_fma": 0},
-                     "conv3x3": {"launches_tc": 14, "launches_cuda_core": 4}}
+                     "conv3x3": {"launches_tc": 14, "launches_thin": 4,
+                                 "launches_cuda_core": 0}}
     percam = flagship_config()
     percam["model_params"]["per_camera_bn"] = True
     assert (train_launches(percam, mode)[0]["conv_bn_link"]
@@ -271,7 +274,7 @@ def test_head_decode_keeps_no_logits():
 
 # ---------------------------------------------- (d) head_decode against JAX
 
-def test_head_decode_step_matches_jax():
+def test_head_decode_step_matches_jax(tmp_path_factory):
     import flax.linen as fnn
     import jax
 
@@ -285,7 +288,6 @@ def test_head_decode_step_matches_jax():
     )
     from x_as_supervision_tpu.train.factory import build_gan_spec as jspec
     from x_as_supervision_tpu.train.state import (
-        init_train_state,
         make_optimizers,
         make_train_step,
     )
@@ -296,8 +298,8 @@ def test_head_decode_step_matches_jax():
     spec = jspec(cfg)
     assert spec.remat_mode == "head_decode"
     opt_det, opt_disc = make_optimizers(cfg["train_params"], STEPS_PER_EPOCH)
-    js = init_train_state(spec, jax.random.PRNGKey(0), batch, opt_det,
-                          opt_disc)
+    js = jax_init_state(tmp_path_factory, cfg, batch, opt_det, opt_disc,
+                        STEPS_PER_EPOCH, jit=True)
     pspec = build_gan_spec(cfg, torch.float32)
     pspec.discriminator.header.p_dropout = 0.0
     state = S.TrainState(pspec, cfg["train_params"], STEPS_PER_EPOCH)

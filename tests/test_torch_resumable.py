@@ -37,12 +37,14 @@ from x_as_supervision_tpu_torch.train.factory import (
 )
 from x_as_supervision_tpu_torch.train.state import TrainState
 from x_as_supervision_tpu_torch import weights
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CHILD = [sys.executable, os.path.join(HERE, "torch_resumable_child.py")]
 ARGS = ["--synthetic", "--seed", "0", "--device", "cpu", "--fp32",
         "--worker", "1"]
 POLL = 0.2
+GRACE_S = 30
 
 
 @pytest.fixture(scope="module")
@@ -92,10 +94,14 @@ def unbroken(setup, tmp_path_factory):
 def test_crash_then_wedge_resume_to_the_unbroken_state(setup, unbroken,
                                                        tmp_path, capfd):
     counter = tmp_path / "attempts"
+    # the watchdog looks at an attempt once it is GRACE old: the attempts'
+    # start-up (a process, torch, the model, the first step) under the
+    # test run's other workers took longer than the 10 s stall window
+    # before its first write, so a grace of 0 killed a healthy attempt
     rc, lines = _drive(setup, tmp_path / "log", capfd,
                        XAS_TEST_FAULTS="crash,stop",
                        XAS_TEST_ATTEMPTS=str(counter),
-                       XAS_STALL_SECS="10", XAS_GRACE_SECS="0")
+                       XAS_STALL_SECS="10", XAS_GRACE_SECS=str(GRACE_S))
     assert rc == 0 and counter.read_text() == "3", lines
     run = driver.newest_run(str(tmp_path / "log"))
     assert os.path.basename(run).startswith("tiny_resumable_FINETUNE_seed0_")

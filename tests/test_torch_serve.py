@@ -16,6 +16,7 @@ from torch_parity import conditioned_pair
 from x_as_supervision_tpu.ops import geometry as JG
 from x_as_supervision_tpu.serve import PoseEstimator as JaxPoseEstimator
 from x_as_supervision_tpu_torch.serve import PoseEstimator
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -18,6 +18,7 @@ from x_as_supervision_tpu.models import smpl as JS
 from x_as_supervision_tpu.ops import geometry as JG
 from x_as_supervision_tpu_torch.models import smpl as S
 from x_as_supervision_tpu_torch.ops import geometry as G
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 
 def test_rodrigues_matches_jax():

@@ -28,6 +28,7 @@ from x_as_supervision_tpu_torch.tools import (
     bench_serve,
 )
 from x_as_supervision_tpu_torch.train.factory import flagship_config
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 CHECK_BATCHES = (1, 2)
 

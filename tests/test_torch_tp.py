@@ -35,6 +35,7 @@ from x_as_supervision_tpu_torch.parallel import collectives as C
 from x_as_supervision_tpu_torch.parallel import mesh, tp
 from x_as_supervision_tpu_torch.train.factory import (
     build_gan_spec, flagship_config)
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 MARK = 10_000.0  # leaf number * MARK + index along JAX's split axis
 SIZES = (1, 2, 3, 4)

@@ -28,7 +28,6 @@ from __graft_entry__ import _flagship_config
 from x_as_supervision_tpu.data.synthetic import SyntheticPoseDataset
 from x_as_supervision_tpu.train.factory import build_gan_spec as jax_spec
 from x_as_supervision_tpu.train.state import (
-    init_train_state,
     make_optimizers,
     make_train_step,
 )
@@ -49,6 +48,8 @@ from x_as_supervision_tpu_torch.train.state import (
     train_step,
 )
 from x_as_supervision_tpu_torch.train.trainer import to_device
+from torch_parity import jax_init_state
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 2
@@ -58,15 +59,15 @@ LR = 1e-4
 
 
 @pytest.fixture(scope="module")
-def trajectories():
+def trajectories(tmp_path_factory):
     cfg = _flagship_config(tiny=True)
     ds = SyntheticPoseDataset(num_samples=BATCH * STEPS, cam_id_list=(0, 1),
                               patch_size=64)
     batches = [ds.device_batch(i * BATCH, BATCH) for i in range(STEPS)]
     spec = jax_spec(cfg)
     opt_det, opt_disc = make_optimizers(cfg["train_params"], STEPS_PER_EPOCH)
-    js = init_train_state(spec, jax.random.PRNGKey(0), batches[0], opt_det,
-                          opt_disc)
+    js = jax_init_state(tmp_path_factory, cfg, batches[0], opt_det, opt_disc,
+                        STEPS_PER_EPOCH)
     step = make_train_step(spec, opt_det, opt_disc)
     pspec = build_gan_spec(flagship_config(tiny=True), torch.float32)
     pspec.discriminator.header.p_dropout = 0.0

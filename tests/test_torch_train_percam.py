@@ -32,7 +32,6 @@ from torch_parity import (
 from x_as_supervision_tpu.data.synthetic import SyntheticPoseDataset
 from x_as_supervision_tpu.train.factory import build_gan_spec as jax_spec
 from x_as_supervision_tpu.train.state import (
-    init_train_state,
     make_optimizers,
     make_train_step,
 )
@@ -46,6 +45,7 @@ from x_as_supervision_tpu_torch.train.factory import (
 )
 from x_as_supervision_tpu_torch.train.state import TrainState, train_step
 from x_as_supervision_tpu_torch.train.trainer import to_device
+from torch_parity import jax_init_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 2
@@ -63,15 +63,15 @@ def percam(cfg: dict) -> dict:
 
 
 @pytest.fixture(scope="module")
-def trajectories():
+def trajectories(tmp_path_factory):
     cfg = percam(_flagship_config(tiny=True))
     ds = SyntheticPoseDataset(num_samples=BATCH * STEPS, cam_id_list=(0, 1),
                               patch_size=64)
     batches = [ds.device_batch(i * BATCH, BATCH) for i in range(STEPS)]
     spec = jax_spec(cfg)
     opt_det, opt_disc = make_optimizers(cfg["train_params"], STEPS_PER_EPOCH)
-    js = init_train_state(spec, jax.random.PRNGKey(0), batches[0], opt_det,
-                          opt_disc)
+    js = jax_init_state(tmp_path_factory, cfg, batches[0], opt_det, opt_disc,
+                        STEPS_PER_EPOCH, jit=True)
     step = make_train_step(spec, opt_det, opt_disc)
     pspec = build_gan_spec(percam(flagship_config(tiny=True)), torch.float32)
     assert isinstance(pspec.discriminator, GCNDiscriminator)

@@ -24,7 +24,6 @@ from torch_parity import (
 from x_as_supervision_tpu.data.synthetic import SyntheticPoseDataset
 from x_as_supervision_tpu.train.factory import build_gan_spec as jax_spec
 from x_as_supervision_tpu.train.state import (
-    init_train_state,
     make_optimizers,
     make_train_step,
 )
@@ -38,6 +37,8 @@ from x_as_supervision_tpu_torch.train.trainer import (
     to_device,
     update_intervals,
 )
+from torch_parity import jax_init_state
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 BATCH = 2
 LR = 1e-4
@@ -45,14 +46,14 @@ VARIANTS = ((False, True), (True, False))  # (do_disc, do_gen)
 
 
 @pytest.fixture(scope="module")
-def steps():
+def steps(tmp_path_factory):
     cfg = _flagship_config(tiny=True)
     ds = SyntheticPoseDataset(num_samples=2 * BATCH, cam_id_list=(0, 1),
                               patch_size=64)
     spec = jax_spec(cfg)
     opt_det, opt_disc = make_optimizers(cfg["train_params"], 10)
-    js = init_train_state(spec, jax.random.PRNGKey(0),
-                          ds.device_batch(0, BATCH), opt_det, opt_disc)
+    js = jax_init_state(tmp_path_factory, cfg, ds.device_batch(0, BATCH),
+                        opt_det, opt_disc, 10)
     step = make_train_step(spec, opt_det, opt_disc)
     pspec = build_gan_spec(flagship_config(tiny=True), torch.float32)
     pspec.discriminator.header.p_dropout = 0.0

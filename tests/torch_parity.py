@@ -1,12 +1,22 @@
 """Shared helpers of the tests that hold the PyTorch port to the JAX package:
 one set of seeded weights and inputs, handed to both as numpy arrays, and a
-JAX train state carried into the port."""
+JAX train state carried into the port; a JAX reference computed once a run
+for all the test processes (``computed_once``, ``jax_init_state``); the
+torch threads of a test module (``few_torch_threads``)."""
 
 from __future__ import annotations
+
+import fcntl
+import hashlib
+import json
+import os
+import pickle
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from x_as_supervision_tpu.models.detector import build_detector as jax_build
@@ -103,3 +113,111 @@ def carry_train_state(pspec, state, js) -> None:
     statistics into the spec's modules; both Adam states, their update
     counts and the carried discriminator gradient into the TrainState."""
     load_train_state(pspec, state, train_state_arrays(js))
+
+
+# torch's intra-op threads in a port test module: the tests run in several
+# worker processes on a few cores beside XLA's own pool, where torch's
+# default of one thread per core oversubscribes them
+TORCH_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """Autouse in every module that imports it: torch at TORCH_THREADS
+    threads for the module's tests, and OMP_NUM_THREADS the same for the
+    processes they start (where the test sets none of its own)."""
+    saved = torch.get_num_threads()
+    saved_env = os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(TORCH_THREADS)
+    os.environ["OMP_NUM_THREADS"] = str(TORCH_THREADS)
+    yield
+    torch.set_num_threads(saved)
+    if saved_env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = saved_env
+
+
+def shared_dir(tmp_path_factory) -> Path:
+    """A directory of this run that every xdist worker sees: the parent of
+    the workers' base temporary directories (the base directory itself
+    without xdist)."""
+    base = tmp_path_factory.getbasetemp()
+    root = (base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+            ) / "jax_reference"
+    root.mkdir(parents=True, exist_ok=True)
+    return root
+
+
+def _digest(obj) -> str:
+    h = hashlib.sha256()
+
+    def feed(o):
+        if isinstance(o, np.ndarray):
+            h.update(f"{o.dtype}{o.shape}".encode())
+            h.update(np.ascontiguousarray(o).tobytes())
+        elif isinstance(o, dict):
+            for k in sorted(o):
+                h.update(repr(k).encode())
+                feed(o[k])
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                feed(v)
+        else:
+            h.update(json.dumps(o, sort_keys=True, default=repr).encode())
+
+    feed(obj)
+    return h.hexdigest()[:24]
+
+
+def computed_once(tmp_path_factory, name: str, key, compute):
+    """compute()'s result (picklable), computed once a run by whichever
+    test process asks first and read back by the others: cached in
+    shared_dir under `name` and a digest of `key` (the content that decides
+    the result: configs, arrays), a file lock held while it is computed."""
+    root = shared_dir(tmp_path_factory)
+    stem = f"{name}-{_digest(key)}"
+    path = root / f"{stem}.pkl"
+    with open(root / f"{stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if path.exists():
+                return pickle.loads(path.read_bytes())
+            value = compute()
+            tmp = root / f"{stem}.{os.getpid()}.tmp"
+            tmp.write_bytes(pickle.dumps(value))
+            os.replace(tmp, path)
+            return value
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def jax_init_state(tmp_path_factory, cfg: dict, batch: dict, opt_det,
+                   opt_disc, steps_per_epoch: int, seed: int = 0,
+                   jit: bool = False):
+    """The JAX package's init_train_state(build_gan_spec(cfg),
+    PRNGKey(seed), batch, opt_det, opt_disc) (the optimizers of
+    make_optimizers(cfg's train_params, steps_per_epoch)), computed once a
+    run for every module that starts from the same one (flax's init runs op
+    by op: some 35 s on this CPU) and rebuilt here from its arrays into the
+    state's own tree: the same values, bit for bit, as the call here; with
+    `jit`, jitted (some 14 s; values within rounding of the op-by-op
+    ones)."""
+    from x_as_supervision_tpu.train.factory import build_gan_spec
+    from x_as_supervision_tpu.train.state import init_train_state
+
+    spec = build_gan_spec(cfg)
+    batch = {k: np.asarray(v) for k, v in batch.items() if k != "act"}
+
+    def init(key):
+        return init_train_state(spec, key, batch, opt_det, opt_disc)
+
+    leaves = computed_once(
+        tmp_path_factory, "init_train_state",
+        {"config": cfg, "batch": batch, "steps_per_epoch": steps_per_epoch,
+         "seed": seed, "jit": jit},
+        lambda: [np.asarray(v) for v in jax.tree_util.tree_leaves(
+            (jax.jit(init) if jit else init)(jax.random.PRNGKey(seed)))])
+    tree = jax.eval_shape(init, jax.random.PRNGKey(seed))
+    return jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(tree), [jnp.asarray(v) for v in leaves])

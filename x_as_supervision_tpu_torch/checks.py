@@ -98,27 +98,31 @@ class AnchoredDetector(torch.nn.Module):
         return types.SimpleNamespace(kps=target[:, None] + ANCHOR_SCALE * kps)
 
 
-def train_launches(config: dict, mode=None) -> tuple[dict, dict]:
+def train_launches(config: dict, mode=None, dtype=None
+                   ) -> tuple[dict, dict]:
     """The launches of each kernel in one fused train step of `config` on
-    the card in bf16, under remat `mode` (a ``model_params.remat`` value;
-    None: the config's own). Returns ({kernel: launches}, {kernel: {path
-    counter: launches}}), the names of chip_smoke.py's counters.
+    the card in `dtype` (bf16 by default, or fp32), under remat `mode` (a
+    ``model_params.remat`` value; None: the config's own). Returns
+    ({kernel: launches}, {kernel: {path counter: launches}}), the names of
+    chip_smoke.py's counters.
 
     Each train-mode detector forward (the cameras; the pseudo images where
     that loss is on) runs one decode and the link once per camera slice
     (``per_camera_bn``) of each stride-1 bottleneck with planes >= 256
-    (models/resnet.py: 5 + 2 in ResNet-50), every link on wgmma, and its
+    (models/resnet.py: 5 + 2 in ResNet-50), every link on wgmma in bf16
+    (on the FMA path in fp32), and its
     backward one decode backward. A checkpoint region runs its forward
     again in the backward (models/composed.py): ``full`` every forward,
     ``pseudo`` the pseudo stream's, ``head_decode`` and ``decode`` only the
     decode. The physique net (where its loss is on) launches each conv
-    forward and each stride-1 conv's input gradient, on tensor cores where
-    ops/conv3x3.py:conv3x3_path says so."""
+    forward and each stride-1 conv's input gradient, on the path that
+    ops/conv3x3.py:conv3x3_path gives it (tensor cores, thin or FMA)."""
     from .models.composed import _remat_mode
     from .models.physique import stages
     from .models.resnet import RESNET_SPEC
-    from .ops.conv3x3 import TC, conv3x3_path
+    from .ops.conv3x3 import PATH_COUNTER, conv3x3_path
 
+    dtype = torch.bfloat16 if dtype is None else dtype
     mp = config["model_params"]
     mode = _remat_mode(mp.get("remat", True) if mode is None else mode)
     loss_cfg = mp["loss_config"]
@@ -133,24 +137,25 @@ def train_launches(config: dict, mode=None) -> tuple[dict, dict]:
     whole = {"full": forwards, "pseudo": pseudo}.get(mode, 0)
     decode_again = forwards if mode in ("head_decode", "decode") else whole
     link_launches = (forwards + whole) * links
-    convs = {TC: 0, "cuda_core": 0}
+    convs = dict.fromkeys(PATH_COUNTER, 0)
     phys = mp.get("physique_mask_generator_params")
     if phys is not None and "physique_recons_loss" in loss_cfg:
         cin = 1
         for op in stages(phys["layers"]) + [("conv", 1, 1)]:
             if op[0] != "conv":
                 continue
-            path = conv3x3_path(torch.bfloat16, cin, op[1])
+            path = conv3x3_path(dtype, cin, op[1])
             convs[path] += 1 + (op[2] == 1)
             cin = op[1]
     launches = {"integral_marginals": forwards + decode_again,
                 "integral_marginals_bwd": forwards,
                 "conv_bn_link": link_launches,
                 "conv3x3": sum(convs.values())}
-    paths = {"conv_bn_link": {"launches_wgmma": link_launches,
-                              "launches_fma": 0},
-             "conv3x3": {"launches_tc": convs[TC],
-                         "launches_cuda_core": convs["cuda_core"]}}
+    wgmma = dtype == torch.bfloat16
+    paths = {"conv_bn_link": {"launches_wgmma": link_launches * wgmma,
+                              "launches_fma": link_launches * (not wgmma)},
+             "conv3x3": {PATH_COUNTER[path]: n
+                         for path, n in convs.items()}}
     return launches, paths
 
 

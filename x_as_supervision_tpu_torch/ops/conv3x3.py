@@ -10,17 +10,22 @@ x's type. The kernels work in channels-last memory: the wrapper converts x
 explicitly (a no-op for the physique net, which keeps its activations
 channels-last) and returns y channels-last, the same logical NCHW tensor.
 
-Two kernels, chosen by shape in one place, ``conv3x3_path``: bf16 with
-Cin >= 32 and Cout >= 32 runs the tensor-core implicit GEMM (it needs
-Cin % 32 == Cout % 32 == 0 and raises otherwise); everything else (fp32,
-and bf16 with a side below 32 channels, such as 1->32 and 32->1) runs the
-CUDA-core kernel. Each path counts its own launches.
+Three kernels, chosen by shape in one place, ``conv3x3_path``: Cin = 1 or
+Cout = 1 (the physique net's first and last convs and their input
+gradients) runs the thin kernel, in either type; bf16 with Cin and Cout
+multiples of 16 runs the tensor-core implicit GEMM (a last slice of 16
+input channels is zero-filled to 32); everything else (fp32 at every width,
+bf16 with channel counts off the multiples of 16) runs the FMA kernel, a
+register-tiled implicit GEMM on the CUDA cores. Each path counts its own
+launches.
 
 The gradient follows the JAX package's conv_pallas.py custom VJP: the
 stride-1 input gradient is the same kernel with the spatially flipped,
-Cin<->Cout-swapped weights and zero bias; the stride-2 input gradient and
+Cin<->Cout-swapped weights and no bias; the stride-2 input gradient and
 every weight gradient go to the library's convolution backward, as the JAX
-package leaves them to XLA; the bias gradient is the sum of g.
+package leaves them to XLA; the bias gradient is the sum of g. The input
+gradient of 1->32 is a 32->1 conv and that of 32->1 a 1->32 one: the thin
+kernel again.
 """
 
 from __future__ import annotations
@@ -34,15 +39,22 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC = "tensor_core"
+THIN = "thin"
 CC = "cuda_core"
+# each path's launch counter on conv3x3_kernel
+PATH_COUNTER = {TC: "launches_tc", THIN: "launches_thin",
+                CC: "launches_cuda_core"}
 TC_SLICE = 32  # input channels per staged slice of the tensor-core kernel
+FMA_KC = 8     # input channels per stage of the FMA kernel
 
 
 def conv3x3_plain(x, w, bias, stride: int = 1):
     """Plain PyTorch version of the kernels. The CPU path and the kernels'
-    reference: fp32 products of working-type values, fp32 sums."""
-    y = F.conv2d(x.float(), w.to(x.dtype).float(), bias.float(),
-                 stride=stride, padding=1)
+    reference: fp32 products of working-type values, fp32 sums. bias may
+    be None (no bias)."""
+    y = F.conv2d(x.float(), w.to(x.dtype).float(),
+                 None if bias is None else bias.float(), stride=stride,
+                 padding=1)
     return y.to(x.dtype)
 
 
@@ -58,38 +70,67 @@ def channels_last(x):
 
 
 def conv3x3_path(dtype, cin: int, cout: int) -> str:
-    """Which kernel a conv runs: the tensor-core path for bf16 with at least
-    32 input and 32 output channels (8 forwards and 6 input gradients of the
-    flagship physique net), else the CUDA-core path (fp32; bf16 1->32, 32->1
-    and odd channel counts)."""
-    if dtype == torch.bfloat16 and cin >= 32 and cout >= 32:
+    """Which kernel a conv runs: the thin kernel where one side has one
+    channel (the flagship physique net's 1->32 and 32->1 and their input
+    gradients, in either type); the tensor cores for bf16 with both sides
+    multiples of 16 (its other 8 forwards and 6 input gradients, and a
+    tensor-parallel rank's 16-channel shards); else the FMA kernel (fp32,
+    and bf16 with channel counts off the multiples of 16)."""
+    if cin == 1 or cout == 1:
+        return THIN
+    if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 16 == 0:
         return TC
     return CC
 
 
+def fma_block_n(cout: int) -> int:
+    """Output channels per block of the FMA kernel (16, 32 or 64): a
+    thread owns 8 of them for 8 pixels, and a block 128 threads."""
+    return 16 if cout <= 16 else 32 if cout <= 32 else 64
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def pack_weights(w, path: str, dtype=None):
-    """w (Cout, Cin, 3, 3) packed for the kernel of `path`, in `dtype` (w's
-    by default), by one cast-and-permute copy. Tensor cores: (Cin/32, 9,
-    Cout, 32), K = (slice, tap, channel of the slice), each output
-    channel's 32 K values contiguous (what ldmatrix reads as mma's B). CUDA
-    cores: (Cin, 9, Cout), K = (channel, tap). Plain torch, so the CPU tests
-    check it."""
+    """w (Cout, Cin, 3, 3) packed for the kernel of `path` by a
+    cast-and-permute copy, its values rounded to `dtype` (w's by default).
+    Plain torch, so the CPU tests check it.
+
+    - tensor cores, in `dtype`: (ceil(Cin/32), 9, Cout, 32), K = (slice,
+      tap, channel of the slice), each output channel's 32 K values
+      contiguous (what ldmatrix reads as mma's B); zeros past Cin.
+    - thin: (C, 9) fp32, C the side that is not 1 (Cout where Cin is 1,
+      else Cin), K = (channel, tap): w's own values as a view where w is
+      fp32 and contiguous (no copy, no launch); the kernel rounds them to
+      `dtype`.
+    - FMA, fp32: (Cin padded to 8, 9, Cout padded to fma_block_n(Cout)),
+      K = (channel, tap); zeros in the padding."""
     cout, cin = w.shape[:2]
     dtype = dtype or w.dtype
     if path == TC:
-        s = cin // TC_SLICE
-        out = torch.empty((s, 9, cout, TC_SLICE), dtype=dtype, device=w.device)
+        s = -(-cin // TC_SLICE)
+        if s * TC_SLICE > cin:  # a last slice of 16 channels
+            w = F.pad(w, (0, 0, 0, 0, 0, s * TC_SLICE - cin))
+        out = torch.empty((s, 9, cout, TC_SLICE), dtype=dtype,
+                          device=w.device)
         out.view(s, 3, 3, cout, TC_SLICE).copy_(
             w.reshape(cout, s, TC_SLICE, 3, 3).permute(1, 3, 4, 0, 2))
         return out
-    out = torch.empty((cin, 9, cout), dtype=dtype, device=w.device)
-    out.view(cin, 3, 3, cout).copy_(w.permute(1, 2, 3, 0))
+    if path == THIN:  # (C, 1, 3, 3) or (1, C, 3, 3)
+        return w.reshape(max(cin, cout), 9).float().contiguous()
+    wq = w.to(dtype).float()
+    out = torch.zeros((_up(cin, FMA_KC), 9, _up(cout, fma_block_n(cout))),
+                      dtype=torch.float32, device=w.device)
+    out[:cin, :, :cout].copy_(wq.reshape(cout, cin, 9).permute(1, 2, 0))
     return out
 
 
-def conv3x3_kernel(x, w, bias, stride: int = 1):
+def conv3x3_kernel(x, w, bias=None, stride: int = 1):
     """The conv on x: a kernel for a CUDA tensor, the plain version for a
-    CPU tensor. No gradient; ``conv3x3`` is the differentiable form."""
+    CPU tensor. bias may be None (the input gradient's launch). No
+    gradient; ``conv3x3`` is the differentiable form."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, bias, stride)
     if x.device.type != "cuda":
@@ -104,40 +145,42 @@ def conv3x3_kernel(x, w, bias, stride: int = 1):
     if tuple(w.shape) != (cout, cin, 3, 3) or w.device != x.device:
         raise ValueError(f"w must be (Cout, {cin}, 3, 3) on {x.device}, got "
                          f"{tuple(w.shape)} on {w.device}")
-    if bias.shape != (cout,) or bias.device != x.device:
+    if bias is not None and (bias.shape != (cout,)
+                             or bias.device != x.device):
         raise ValueError(f"bias must be ({cout},) on {x.device}")
     path = conv3x3_path(x.dtype, cin, cout)
-    if path == TC and (cin % TC_SLICE or cout % 32):
-        raise ValueError(f"the tensor-core conv3x3 needs Cin % {TC_SLICE} == "
-                         f"0 and Cout % 32 == 0, got {cin}->{cout}")
     x = channels_last(x)
     if x.data_ptr() % 16:
         raise ValueError("conv3x3 kernel needs 16-byte aligned x")
     wp = pack_weights(w, path, x.dtype)
-    bias = bias.float().contiguous()
+    bias = None if bias is None else bias.float().contiguous()
     y = torch.empty((b, cout, (h - 1) // stride + 1, (wd - 1) // stride + 1),
                     dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     lib = _lib()
-    args = (x.data_ptr(), wp.data_ptr(), bias.data_ptr(), y.data_ptr(), b,
-            cin, cout, h, wd, stride, _build.stream_handle(x))
+    ptrs = (x.data_ptr(), wp.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr())
+    shape = (b, cin, cout, h, wd, stride)
     with _build.device_guard(x):
         if path == TC:
-            err = lib.xas_conv3x3_tc(*args)
+            err = lib.xas_conv3x3_tc(*ptrs, *shape, _build.stream_handle(x))
+        elif path == THIN:
+            err = lib.xas_conv3x3_thin(_DTYPES[x.dtype], *ptrs, *shape,
+                                       _build.stream_handle(x))
         else:
-            err = lib.xas_conv3x3_cc(_DTYPES[x.dtype], *args)
+            err = lib.xas_conv3x3_fma(_DTYPES[x.dtype], *ptrs, *shape,
+                                      fma_block_n(cout),
+                                      _build.stream_handle(x))
     _build.check(lib, err, f"conv3x3 ({path})")
     conv3x3_kernel.launches += 1
-    if path == TC:
-        conv3x3_kernel.launches_tc += 1
-    else:
-        conv3x3_kernel.launches_cuda_core += 1
+    counter = PATH_COUNTER[path]
+    setattr(conv3x3_kernel, counter, getattr(conv3x3_kernel, counter) + 1)
     return y
 
 
 conv3x3_kernel.launches = 0
-conv3x3_kernel.launches_tc = 0
-conv3x3_kernel.launches_cuda_core = 0
+for _counter in PATH_COUNTER.values():
+    setattr(conv3x3_kernel, _counter, 0)
 
 
 class _Conv3x3(torch.autograd.Function):
@@ -156,8 +199,7 @@ class _Conv3x3(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0] and stride == 1:
             wt = wc.flip(2, 3).transpose(0, 1)  # (Cin, Cout, 3, 3)
-            dx = conv3x3_kernel(g, wt, torch.zeros(
-                x.shape[1], dtype=torch.float32, device=x.device), 1)
+            dx = conv3x3_kernel(g, wt, None, 1)
         mask = [ctx.needs_input_grad[0] and stride != 1,
                 ctx.needs_input_grad[1], False]
         gx, gw, _ = torch.ops.aten.convolution_backward(
@@ -181,6 +223,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.xas_conv3x3_tc.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.xas_conv3x3_tc.restype = i
-        lib.xas_conv3x3_cc.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p]
-        lib.xas_conv3x3_cc.restype = i
+        lib.xas_conv3x3_thin.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p]
+        lib.xas_conv3x3_thin.restype = i
+        lib.xas_conv3x3_fma.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.xas_conv3x3_fma.restype = i
     return lib

@@ -44,7 +44,8 @@ PORT_KERNELS = {
     "integral_marginals_bwd": (("marginals_bwd_kernel",), ()),
     "conv_bn_link": (("link_wgmma_kernel", "link_fma_kernel"),
                      ("stats_kernel",)),
-    "conv3x3": (("conv3x3_tc_kernel", "conv3x3_cc_kernel"), ()),
+    "conv3x3": (("conv3x3_tc_kernel", "conv3x3_thin_kernel",
+                 "conv3x3_fma_kernel"), ()),
 }
 # the library classes, first match wins (after the port's kernels):
 # cuDNN's BatchNorm kernels hold "cudnn", so batchnorm comes before conv_gemm
