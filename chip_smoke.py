@@ -58,7 +58,10 @@ flagship step has 2 + 2 and 14.
    vis, vis, plain), and the host's logging of it: the one fetch of the
    metrics, the one fetch of the outputs, tb_vis into an event file. Then
    torch.profiler over one more step, with the count of NCHW<->NHWC
-   transpose kernels it still runs;
+   transpose kernels it still runs; and the physique net's leaky ReLU at
+   its largest activation (bf16, 128 x 32 x 256^2): F.leaky_relu's values
+   and gradient off 0, the whole gradient at 0 (the JAX package's), and
+   both timed forward plus backward;
 7. train-parity: one fused step of a reduced flagship config (ResNet-50 at
    64^2, 2 cameras, batch 2, D = 16) in fp32 on the card, TF32 off, against
    the same step on the CPU's plain path from the same weights and batch,
@@ -1323,6 +1326,7 @@ def phase_train(top: int = 15) -> dict:
                   f"{TRAIN_STEPS} steps, expected {per_step} per step")
 
     vis = _vis_step(cfg, step, host_batches, counters)
+    leaky = _leaky_relu_case()
 
     # one more step under the profiler
     ev0, ev1 = (torch.cuda.Event(enable_timing=True),
@@ -1348,12 +1352,53 @@ def phase_train(top: int = 15) -> dict:
             for name, attrs in path_launches.items()},
         losses=losses, params_unmoved=unmoved,
         max_param_change=max(moved.values()), vis_step=vis,
+        leaky_relu=leaky,
     )
     emit(**record)
     emit(phase="train_profile", window_us=window_us,
          layout_transposes=_layout_transposes(prof),
          **_profile_rows(prof, window_us, top))
     return record
+
+
+def _leaky_relu_case() -> dict:
+    """The physique net's leaky ReLU (models/physique.py:leaky_relu: the
+    JAX package's gradient, whole at an input of 0) on the card, at the
+    flagship physique's largest activation (bf16, channels-last): its
+    values and its gradient against F.leaky_relu's off 0, bitwise, and the
+    whole gradient at 0; forward plus backward ms of each (CUDA events)."""
+    import torch
+    import torch.nn.functional as F
+
+    from x_as_supervision_tpu_torch.models.physique import leaky_relu
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = (TRAIN_IMAGES, 32, PATCH, PATCH)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    x.view(-1)[::7] = 0.0
+    x = x.contiguous(memory_format=torch.channels_last)
+    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    g = g.contiguous(memory_format=torch.channels_last)
+    x.requires_grad_(True)
+    out = {}
+    for name, fn in (("physique", lambda v: leaky_relu(v, 0.01)),
+                     ("torch", lambda v: F.leaky_relu(v, 0.01))):
+        y = fn(x)
+        (gx,) = torch.autograd.grad(y, x, g)
+        out[name] = (y.detach(), gx)
+        out[f"{name}_ms"] = cuda_ms(
+            lambda fn=fn: torch.autograd.grad(fn(x), x, g), iters=10)
+    (y, gx), (y_ref, gx_ref) = out["physique"], out["torch"]
+    zero = x.detach() == 0
+    check(torch.equal(y, y_ref), "leaky_relu: values differ from F's")
+    check(torch.equal(gx[~zero], gx_ref[~zero]),
+          "leaky_relu: gradient off 0 differs from F's")
+    check(torch.equal(gx[zero], g[zero]),
+          "leaky_relu: gradient at 0 is not the whole gradient")
+    check(gx.is_contiguous(memory_format=torch.channels_last),
+          "leaky_relu: gradient not channels-last")
+    return dict(shape=list(shape), dtype="bf16", zeros=int(zero.sum()),
+                ms=out["physique_ms"], torch_ms=out["torch_ms"])
 
 
 def _vis_step(cfg: dict, step, host_batches, counters) -> dict:

@@ -7,8 +7,10 @@ trajectory, each step from the JAX train state carried into the port (as
 test_torch_train.py does). Dropout is off on both sides (flax's nn.Dropout
 patched to the identity inside this test only); the rotations' uniforms are
 the JAX step's own, recomputed from its key and passed to the port's
-train_step as ``rot_draws``. Then the same options through the train CLI to
-a checkpoint and the eval CLI, on the CPU; the port's JSON copy of
+train_step as ``rot_draws``; the ReLU inputs within float32 rounding of 0
+are decided on both sides as the port's float64 step decides them
+(tests/torch_parity.py:HeldSteps). Then the same options through the train
+CLI to a checkpoint and the eval CLI, on the CPU; the port's JSON copy of
 config/Campaign_SurS2_percam.yaml; and model_params.fuse_gan_step.
 """
 
@@ -24,10 +26,9 @@ import torch
 from __graft_entry__ import _flagship_config
 from test_torch_gan_aug import jax_rot_draws
 from torch_parity import (
+    HeldSteps,
+    assert_pending_matches,
     assert_step_matches,
-    carry_train_state,
-    jax_state_in_port_names,
-    to_numpy_tree,
 )
 from x_as_supervision_tpu.data.synthetic import SyntheticPoseDataset
 from x_as_supervision_tpu.train.factory import build_gan_spec as jax_spec
@@ -46,6 +47,7 @@ from x_as_supervision_tpu_torch.train.factory import (
 from x_as_supervision_tpu_torch.train.state import TrainState, train_step
 from x_as_supervision_tpu_torch.train.trainer import to_device
 from torch_parity import jax_init_state
+from torch_parity import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 2
@@ -72,40 +74,26 @@ def trajectories(tmp_path_factory):
     opt_det, opt_disc = make_optimizers(cfg["train_params"], STEPS_PER_EPOCH)
     js = jax_init_state(tmp_path_factory, cfg, batches[0], opt_det, opt_disc,
                         STEPS_PER_EPOCH, jit=True)
-    step = make_train_step(spec, opt_det, opt_disc)
-    pspec = build_gan_spec(percam(flagship_config(tiny=True)), torch.float32)
-    assert isinstance(pspec.discriminator, GCNDiscriminator)
-    assert len(pspec.discriminator.bns) == 4 and pspec.use_aug
-    pspec.discriminator.p_dropout = 0.0
-    state = TrainState(pspec, cfg["train_params"], STEPS_PER_EPOCH)
-    nh = cfg["model_params"]["detector_params"]["num_hypo"]
 
+    def make_spec(dtype):
+        pspec = build_gan_spec(percam(flagship_config(tiny=True)), dtype)
+        assert isinstance(pspec.discriminator, GCNDiscriminator)
+        assert len(pspec.discriminator.bns) == 4 and pspec.use_aug
+        pspec.discriminator.p_dropout = 0.0
+        return pspec
+
+    held = HeldSteps(make_spec, cfg["train_params"], STEPS_PER_EPOCH)
+    nh = cfg["model_params"]["detector_params"]["num_hypo"]
     traj = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
         for i, batch in enumerate(batches):
-            before = jax_state_in_port_names(js)
-            carry_train_state(pspec, state, js)
             key = jax.random.PRNGKey(i)
-            js, jmetrics, _ = step(js, batch, key, do_disc=True,
-                                   do_gen=True, with_outputs=False)
-            metrics = train_step(state, to_device(batch, "cpu"),
-                                 rot_draws=jax_rot_draws(key, 2, BATCH, nh))
-            got = {}
-            for prefix in ("detector", "physique", "discriminator"):
-                got.update({f"{prefix}.{k}": v.detach().clone() for k, v in
-                            getattr(pspec, prefix).state_dict().items()
-                            if "num_batches" not in k})
-            traj.append(dict(
-                before=before,
-                want_metrics={k: float(v) for k, v in jmetrics.items()},
-                metrics={k: float(v) for k, v in metrics.items()},
-                want=jax_state_in_port_names(js), got=got,
-                want_pending=weights.discriminator_state_dict(
-                    to_numpy_tree(js.pending_disc_grads)),
-                pending=dict(zip(state.disc_names,
-                                 state.pending_disc_grads))))
-    return traj, pspec
+            js, record = held.step(
+                js, batch, lambda: make_train_step(spec, opt_det, opt_disc),
+                key, rot_draws=jax_rot_draws(key, 2, BATCH, nh))
+            traj.append(record)
+    return traj, held.pspec
 
 
 @pytest.mark.parametrize("i", range(STEPS))
@@ -129,15 +117,8 @@ def test_percam_aug_res_gcn_parameters_and_stats_match_jax(trajectories, i):
 
 @pytest.mark.parametrize("i", range(STEPS))
 def test_percam_aug_res_gcn_pending_grads_match_jax(trajectories, i):
-    step = trajectories[0][i]
-    want, got = step["want_pending"], step["pending"]
-    assert sorted(got) == sorted(want)
-    scale = max(float(np.abs(np.asarray(v)).max()) for v in want.values())
-    assert scale > 0
-    for k in want:
-        # fp32 gradients of both smpl_gen branches through the GCN
-        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
-                                   rtol=1e-4, atol=1e-5 * scale, err_msg=k)
+    # fp32 gradients of both smpl_gen branches through the GCN
+    assert_pending_matches(trajectories[0][i])
 
 
 def test_percam_json_is_the_yaml_config():

@@ -75,13 +75,27 @@ def conditioned_pair(det_params: dict, size: int, batch: int, seed: int):
     return jdet, {"params": params, "batch_stats": stats}, tdet, images
 
 
-def jax_state_in_port_names(js) -> dict:
+class StateArrays(dict):
+    """A train state's variables in the port's names, with its Adams'
+    update counts (``counts``: {"det": t, "disc": t}), which
+    step_bounds.assert_step_matches reads."""
+
+    def __init__(self, arrays: dict, counts: dict):
+        super().__init__(arrays)
+        self.counts = counts
+
+
+def jax_state_in_port_names(js) -> StateArrays:
     """A JAX TrainState's variables (parameters and BatchNorm statistics)
     as a flat dict of arrays in the port's names (detector., physique.,
-    discriminator.): the port's convert.module_arrays."""
-    return module_arrays(*(to_numpy_tree(getattr(js, f)) for f in (
-        "det_params", "det_stats", "phys_params", "phys_stats",
-        "disc_params")))
+    discriminator.): the port's convert.module_arrays; with its Adams'
+    update counts where it has optimizers."""
+    return StateArrays(
+        module_arrays(*(to_numpy_tree(getattr(js, f)) for f in (
+            "det_params", "det_stats", "phys_params", "phys_stats",
+            "disc_params"))),
+        {tag: int(getattr(js, f"opt_{tag}")[0].count)
+         for tag in ("det", "disc") if hasattr(js, f"opt_{tag}")})
 
 
 def raw_train_state(js) -> dict:
@@ -108,6 +122,16 @@ def train_state_arrays(js) -> dict:
     return train_state_arrays_from_jax(to_numpy_tree(raw_train_state(js)))
 
 
+def _state_in_float64(state) -> None:
+    """A port TrainState's Adam moments and carried gradient in float64
+    (its modules made float64 by .double()), after load_train_state."""
+    for opt in (state.opt_det, state.opt_disc):
+        for st in opt.state.values():
+            for k in ("exp_avg", "exp_avg_sq"):
+                st[k] = st[k].double()
+    state.pending_disc_grads = [g.double() for g in state.pending_disc_grads]
+
+
 def carry_train_state(pspec, state, js) -> None:
     """Carry a JAX TrainState into the port: parameters and BatchNorm
     statistics into the spec's modules; both Adam states, their update
@@ -115,10 +139,104 @@ def carry_train_state(pspec, state, js) -> None:
     load_train_state(pspec, state, train_state_arrays(js))
 
 
+class HeldSteps:
+    """The port's train step from a carried JAX state against the JAX
+    package's jitted step, step by step, with their ReLU near-ties decided
+    on both sides as the port's float64 step decides them
+    (tests/torch_ties.py). `make_spec(dtype)` builds the port's spec (its
+    dropout off); ``pspec`` is the float32 one."""
+
+    def __init__(self, make_spec, train_params: dict, steps_per_epoch: int):
+        from x_as_supervision_tpu_torch.train.state import TrainState
+
+        self.ports = {}
+        for dtype in (torch.float32, torch.float64):
+            spec = make_spec(dtype)
+            if dtype == torch.float64:
+                for m in (spec.detector, spec.physique, spec.discriminator):
+                    if m is not None:
+                        m.double()
+            self.ports[dtype] = (spec, TrainState(spec, train_params,
+                                                  steps_per_epoch))
+        self.pspec = self.ports[torch.float32][0]
+
+    def _port_run(self, arrays: dict, batch: dict, rot_draws):
+        from x_as_supervision_tpu_torch.train.state import train_step
+        from x_as_supervision_tpu_torch.train.trainer import to_device
+
+        def run(dtype):
+            spec, state = self.ports[dtype]
+            load_train_state(spec, state, arrays)
+            tbatch = to_device(batch, "cpu")
+            if dtype == torch.float64:
+                _state_in_float64(state)
+                tbatch = {k: v.double() if v.is_floating_point() else v
+                          for k, v in tbatch.items()}
+            kw = {} if rot_draws is None else {"rot_draws": {
+                k: v.to(dtype) for k, v in rot_draws.items()}}
+            metrics = train_step(state, tbatch, **kw)
+            got = {}
+            for prefix in ("detector", "physique", "discriminator"):
+                got.update({f"{prefix}.{k}": v.detach().clone() for k, v in
+                            getattr(spec, prefix).state_dict().items()
+                            if "num_batches" not in k})
+            return dict(metrics={k: float(v) for k, v in metrics.items()},
+                        got=got, pending={
+                            n: g.double().numpy() for n, g in
+                            zip(state.disc_names, state.pending_disc_grads)})
+        return run
+
+    def step(self, js, batch: dict, make_step, key, rot_draws=None):
+        """One fused step of each from the JAX state `js` on `batch` (JAX's
+        from `make_step()`, traced afresh, with `key`; the port's with
+        `rot_draws` where given). Returns JAX's new state and the step's
+        record: before, want / got (the states after it), want_metrics /
+        metrics, want_pending / pending / exact_pending (the carried
+        discriminator gradient; the port's float64 one) and ties."""
+        from torch_ties import JaxRelus, held_run
+
+        before = jax_state_in_port_names(js)
+        got, exact, ties = held_run(self._port_run(
+            train_state_arrays(js), batch, rot_draws))
+        with JaxRelus(ties) as relus:
+            js, jmetrics, _ = make_step()(js, batch, key, do_disc=True,
+                                          do_gen=True, with_outputs=False)
+        assert relus.calls == len(ties.shapes)
+        return js, dict(
+            before=before,
+            want_metrics={k: float(v) for k, v in jmetrics.items()},
+            metrics=got["metrics"], want=jax_state_in_port_names(js),
+            got=got["got"],
+            want_pending={k: v.numpy() for k, v in
+                          weights.discriminator_state_dict(
+                              to_numpy_tree(js.pending_disc_grads)).items()},
+            pending=got["pending"], exact_pending=exact["pending"],
+            ties=ties)
+
+
+def assert_pending_matches(step: dict) -> None:
+    """A HeldSteps record's carried discriminator gradient against JAX's:
+    fp32 gradients of the smpl_gen loss through the discriminator, at 1e-4
+    relative and 1e-5 of the largest entry of any of them (against the
+    port's float64 where its own float32 rounding takes more than half of
+    that: tests/torch_ties.py:assert_held)."""
+    from torch_ties import assert_held
+
+    want, got = step["want_pending"], step["pending"]
+    assert sorted(got) == sorted(want)
+    scale = max(float(np.abs(v).max()) for v in want.values())
+    assert scale > 0
+    for k in want:
+        assert_held(got[k], want[k], step["exact_pending"][k], rtol=1e-4,
+                    atol=1e-5 * scale, err_msg=k)
+
+
 # torch's intra-op threads in a port test module: the tests run in several
 # worker processes on a few cores beside XLA's own pool, where torch's
-# default of one thread per core oversubscribes them
-TORCH_THREADS = 2
+# default of one thread per core oversubscribes them. XAS_TEST_TORCH_THREADS
+# overrides it, to run the parity tests at another count (the thread sweep
+# of .claude/skills/verify/SKILL.md)
+TORCH_THREADS = int(os.environ.get("XAS_TEST_TORCH_THREADS", "2"))
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -3,11 +3,12 @@ rendered skeleton-line mask into a body silhouette, ported from the JAX
 package's models/physique.py (its default NHWC path).
 
 NCHW: the input is (B, 1, S, S) and the output (B, 1, S, S) in fp32 after a
-sigmoid. The input is put in channels-last memory once, and every
-activation stays channels-last between layers (conv, BatchNorm, leaky ReLU,
-bilinear upsample, and their gradients), so no layout copy sits between
-layers and cuDNN and PyTorch's BatchNorm run their NHWC forms. Every 3x3
-conv runs through ops/conv3x3.py (the CUDA kernels on the card).
+sigmoid (float64 for a float64 net). The input is put in channels-last
+memory once, and every activation stays channels-last between layers
+(conv, BatchNorm, leaky ReLU, bilinear upsample, and their gradients), so
+no layout copy sits between layers and cuDNN and PyTorch's BatchNorm run
+their NHWC forms. Every 3x3 conv runs through ops/conv3x3.py (the CUDA
+kernels on the card).
 Parameters and BatchNorm statistics are fp32; the input is cast to the
 working type ``dtype`` and each conv casts its weight to it. BatchNorm
 (models/resnet.py:BatchNorm2d) pools its statistics over the whole batch,
@@ -30,6 +31,30 @@ import torch.nn.functional as F
 
 from ..ops.conv3x3 import channels_last, conv3x3
 from .resnet import BatchNorm2d, set_bn_groups, split_input
+
+
+class _LeakyReLU(torch.autograd.Function):
+    """F.leaky_relu forward; the backward steps where the output is >= 0."""
+
+    @staticmethod
+    def forward(ctx, x, negative_slope: float):
+        y = F.leaky_relu(x, negative_slope)
+        ctx.negative_slope = negative_slope
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where(y >= 0, g, g * ctx.negative_slope), None
+
+
+def leaky_relu(x, negative_slope: float = 0.01):
+    """The JAX package's leaky ReLU, jnp.where(x >= 0, x, slope x): the
+    values of F.leaky_relu, and a gradient of 1 at an input of 0, where
+    F.leaky_relu's is the slope (the output is >= 0 exactly where the input
+    is, so the backward reads the output, which the next conv keeps)."""
+    return _LeakyReLU.apply(x, negative_slope)
 
 
 class Conv3x3(nn.Module):
@@ -99,6 +124,8 @@ class PhysiqueMaskGenerator(nn.Module):
                 x = F.interpolate(x, scale_factor=2, mode="bilinear",
                                   align_corners=False)
                 continue
-            x = F.leaky_relu(self.bns[i](self.convs[i](x)), 0.01)
+            x = leaky_relu(self.bns[i](self.convs[i](x)), 0.01)
             i += 1
-        return torch.sigmoid(self.convs[i](x).float())
+        x = self.convs[i](x)
+        return torch.sigmoid(x.to(torch.promote_types(x.dtype,
+                                                      torch.float32)))

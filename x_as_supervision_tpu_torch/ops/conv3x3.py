@@ -50,10 +50,11 @@ FMA_KC = 8     # input channels per stage of the FMA kernel
 
 def conv3x3_plain(x, w, bias, stride: int = 1):
     """Plain PyTorch version of the kernels. The CPU path and the kernels'
-    reference: fp32 products of working-type values, fp32 sums. bias may
-    be None (no bias)."""
-    y = F.conv2d(x.float(), w.to(x.dtype).float(),
-                 None if bias is None else bias.float(), stride=stride,
+    reference: fp32 products of working-type values, fp32 sums (float64
+    ones for float64 x). bias may be None (no bias)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = F.conv2d(x.to(acc), w.to(x.dtype).to(acc),
+                 None if bias is None else bias.to(acc), stride=stride,
                  padding=1)
     return y.to(x.dtype)
 
@@ -208,7 +209,8 @@ class _Conv3x3(torch.autograd.Function):
         if mask[0]:
             dx = gx
         dw = gw.to(w.dtype) if gw is not None else None
-        db = g.float().sum(dim=(0, 2, 3)) if ctx.needs_input_grad[2] else None
+        db = (g.to(torch.promote_types(g.dtype, torch.float32)).sum(
+            dim=(0, 2, 3)) if ctx.needs_input_grad[2] else None)
         return dx, dw, db, None
 
 

@@ -29,7 +29,8 @@ class IntegralDecode(NamedTuple):
 
 def heatmap_marginals(logits: torch.Tensor, num_joints: int):
     """(B, K*D, H, W) logits -> normalized softmax marginals accu_x (B, K, W),
-    accu_y (B, K, H), accu_z (B, K, D), in fp32."""
+    accu_y (B, K, H), accu_z (B, K, D), in fp32 (float64 for float64
+    logits on the CPU)."""
     ax, ay, az, _, _ = marginals(logits, num_joints)
     return ax, ay, az
 

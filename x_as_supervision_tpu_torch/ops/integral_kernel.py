@@ -117,10 +117,11 @@ def marginals_plan(b: int, k: int, d: int, h: int, w: int, dtype,
 def marginals_plain(logits: torch.Tensor, num_joints: int):
     """Plain PyTorch version of the kernel (the math of the JAX package's
     ops/integral.py:heatmap_marginals). The CPU path and the kernel's
-    reference."""
+    reference. In fp32, float64 logits in float64."""
     b, c, h, w = logits.shape
     d = c // num_joints
-    vol = logits.reshape(b, num_joints, d, h, w).float()
+    vol = logits.reshape(b, num_joints, d, h, w).to(
+        torch.promote_types(logits.dtype, torch.float32))
     m = vol.amax(dim=(2, 3, 4), keepdim=True)
     # the shift carries no gradient (softmax is shift-invariant), as the
     # JAX package's stop_gradient on it
