@@ -1,0 +1,7 @@
+"""Device ms a step in BatchNorm kernels."""
+
+from harness.readers import per_unit_ms
+
+
+def read(run):
+    return per_unit_ms(run, "train", "batchnorm")
