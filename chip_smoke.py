@@ -2209,12 +2209,11 @@ def phase_real_data(card: str) -> dict:
             run["launches_per_step"], run["path_launches_per_step"] = \
                 _check_train_launches(steps, what, cfgs[feed])
             check(len(run["loader_wait_ms"]) == len(run["step_ms"]) == steps
-                  == len(trainer.loader.batch_seconds),
+                  == trainer.loader.batches_made,
                   f"{what}: {len(run['loader_wait_ms'])} waits, "
                   f"{len(run['step_ms'])} steps timed, "
-                  f"{len(trainer.loader.batch_seconds)} batches made")
-            run["batch_made_ms"] = [t * 1e3
-                                    for t in trainer.loader.batch_seconds]
+                  f"{trainer.loader.batches_made} batches made")
+            run["mean_batch_made_ms"] = _batch_made_ms(trainer.loader)
             run["losses"] = trainer.history
             if feed == "fp32":
                 (name,) = os.listdir(log_dir)
@@ -2233,9 +2232,9 @@ def phase_real_data(card: str) -> dict:
             made = _loader_batch_ms(datasets[feed])
             steady_step = runs[feed]["step_ms"][1:]
             loader[feed] = dict(
-                batch_ms=made, mean_batch_ms=float(np.mean(made)),
+                mean_batch_ms=made,
                 mean_step_ms=float(np.mean(steady_step)),
-                sets_the_pace=bool(np.mean(made) > np.mean(steady_step)))
+                sets_the_pace=bool(made > np.mean(steady_step)))
 
         modes = {}
         for mode in EVAL_MODES:
@@ -2319,7 +2318,9 @@ def _timed_train_cli(cfg_path: str, log_dir: str, train_main=None,
     with the flags `extra`, timed from outside: how long each step waits on
     the loader's queue, and CUDA events around each train_step and around
     each batch's copy to the card (``h2d_ms``, its MB ``h2d_mb``). Returns
-    the Trainer and the run's record."""
+    the Trainer and the run's record, with the loader's counters when the
+    first batch reached the trainer (``loader_at_first``: batches made,
+    their seconds; for ``_batch_made_ms``)."""
     import torch
 
     from x_as_supervision_tpu_torch.data.loader import BatchLoader
@@ -2329,7 +2330,7 @@ def _timed_train_cli(cfg_path: str, log_dir: str, train_main=None,
         from x_as_supervision_tpu_torch.train.__main__ import main as \
             train_main
 
-    waits, events, copies, copy_mb = [], [], [], []
+    waits, events, copies, copy_mb, first = [], [], [], [], []
     epoch_fn, step_fn = BatchLoader.epoch, trainer_mod.train_step
     copy_fn = trainer_mod.to_device
 
@@ -2354,6 +2355,9 @@ def _timed_train_cli(cfg_path: str, log_dir: str, train_main=None,
                 except StopIteration:
                     return
                 waits.append(time.perf_counter() - t)
+                if not first:
+                    first.extend((self.batches_made,
+                                  self.batch_seconds_total))
                 yield batch
         finally:
             batches.close()
@@ -2382,26 +2386,39 @@ def _timed_train_cli(cfg_path: str, log_dir: str, train_main=None,
                          step_ms=[a.elapsed_time(b) for a, b in events],
                          loader_wait_ms=[w * 1e3 for w in waits],
                          h2d_ms=[a.elapsed_time(b) for a, b in copies],
-                         h2d_mb=copy_mb)
+                         h2d_mb=copy_mb, loader_at_first=first)
 
 
-def _loader_batch_ms(dataset) -> list[float]:
-    """The ms the train CLI's loader takes to make each batch of `dataset`
-    with nothing else running: one warm-up epoch, then LOADER_EPOCHS epochs
-    drained as fast as they come."""
+def _batch_made_ms(loader, first=None) -> float:
+    """The mean ms `loader` took to make a batch: over every batch, or,
+    given `first` (its counters at some earlier point), over those made
+    after it."""
+    n, s = loader.batches_made, loader.batch_seconds_total
+    if first:
+        n, s = n - first[0], s - first[1]
+    return 1e3 * s / n if n else float("nan")
+
+
+def _loader_batch_ms(dataset) -> float:
+    """The mean ms the train CLI's loader takes to make a batch of
+    `dataset` with nothing else running: one warm-up epoch, then
+    LOADER_EPOCHS epochs drained as fast as they come."""
     from x_as_supervision_tpu_torch.data.loader import BatchLoader
 
     loader = BatchLoader(dataset, TRAIN_BATCH, num_workers=LOADER_WORKERS,
                          prefetch=2, seed=SEED)
     warm = len(loader)
-    for epoch in range(1 + LOADER_EPOCHS):
+    for _ in loader.epoch(0):
+        pass
+    after_warm = (loader.batches_made, loader.batch_seconds_total)
+    for epoch in range(1, 1 + LOADER_EPOCHS):
         for _ in loader.epoch(epoch):
             pass
     loader._pool.shutdown()
-    made = [t * 1e3 for t in loader.batch_seconds[warm:]]
-    check(len(made) == LOADER_EPOCHS * warm >= 2 + 5,
-          f"real_data loader: {len(made)} batches timed")
-    return made
+    made = loader.batches_made - after_warm[0]
+    check(made == LOADER_EPOCHS * warm >= 2 + 5,
+          f"real_data loader: {made} batches timed")
+    return _batch_made_ms(loader, after_warm)
 
 
 def _expect_all(got: dict, skipped: dict, want: set, what: str) -> None:
@@ -3205,15 +3222,15 @@ def phase_mono(card: str) -> dict:
             for h in trainer.history),
             f"{what}: losses {trainer.history}")
         run["losses"] = trainer.history
-        run["batch_made_ms"] = [t * 1e3 for t in trainer.loader.batch_seconds]
         steady = run["step_ms"][1:]
         run["mean_step_ms"] = float(np.mean(steady))
         run["img_per_s"] = TRAIN_BATCH / (run["mean_step_ms"] / 1e3)
-        run["mean_batch_made_ms"] = float(np.mean(run["batch_made_ms"]))
+        run["mean_batch_made_ms"] = _batch_made_ms(trainer.loader)
         # the loader against the step it has to keep up with, both after
-        # the first (cold) one
+        # the first (cold) one: the batches made once it had arrived
         run["loader_sets_the_pace"] = bool(
-            np.mean(run["batch_made_ms"][1:]) > run["mean_step_ms"])
+            _batch_made_ms(trainer.loader, run["loader_at_first"])
+            > run["mean_step_ms"])
         (name,) = os.listdir(log_dir)
         path = os.path.join(log_dir, name, "00000_ckpt")
         check(sorted(os.listdir(os.path.join(log_dir, name)))
@@ -3415,13 +3432,13 @@ def _campaign_train(cfg_path: str, log_dir: str, what: str,
         for h in trainer.history), f"{what}: losses {trainer.history}")
     run["losses"] = trainer.history
     run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    run["batch_made_ms"] = [t * 1e3 for t in trainer.loader.batch_seconds]
     steady = run["step_ms"][1:]
     run.update(mean_step_ms=float(np.mean(steady)),
                img_per_s=TRAIN_IMAGES / (float(np.mean(steady)) / 1e3),
                mean_loader_wait_ms=float(np.mean(run["loader_wait_ms"][1:])),
                mean_h2d_ms=float(np.mean(run["h2d_ms"][1:])),
-               mean_batch_made_ms=float(np.mean(run["batch_made_ms"][1:])))
+               mean_batch_made_ms=_batch_made_ms(trainer.loader,
+                                                 run["loader_at_first"]))
     (name,) = os.listdir(log_dir)
     del trainer
     torch.cuda.empty_cache()

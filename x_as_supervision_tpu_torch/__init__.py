@@ -43,6 +43,9 @@ the offline tools that render the self-rendered campaign:
   weights.py  JAX variables -> state_dicts; seeded weights; the ImageNet
               backbone init
   config.py   YAML / JSON config loading
+  spans.py    the named spans (xas.*) that a profiler records: the train
+              step's phases, the modules and losses, the remat recompute,
+              each kernel op, the serve request's stages, the loader
   parallel/   data parallelism: the process group (torchrun or
               --coordinator) and the collectives of the data-parallel step
               and the sharded eval

@@ -4,10 +4,11 @@ batches in the same order for the same seed).
 
 A thread pool runs the per-sample pipeline, batches are assembled in
 submission order, and a bounded prefetch queue keeps the card fed while the
-current step runs. ``batch_seconds`` records how long each batch took to
-make: a consumer whose step is shorter than that waits on the queue. Per-shard slicing and epoch-keyed shuffling reproduce
-DistributedSampler semantics (reference: train.py:153,278): epoch e visits
-``np.random.default_rng(seed + e).permutation(len(dataset))``.
+current step runs. ``batches_made``, ``batch_seconds_total`` and
+``batch_seconds_min`` count the batches made and the seconds they took: a
+consumer whose step is shorter than their mean waits on the queue.
+Per-shard slicing and epoch-keyed shuffling reproduce DistributedSampler
+semantics (reference: train.py:153,278): epoch e visits ``np.random.default_rng(seed + e).permutation(len(dataset))``.
 """
 
 from __future__ import annotations
@@ -80,9 +81,11 @@ class BatchLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self._pool = ThreadPoolExecutor(max_workers=num_workers)
-        # seconds from submitting each batch's samples to its collation, in
-        # the order made, over every epoch
-        self.batch_seconds: list[float] = []
+        # batches made over every epoch, and the seconds from submitting
+        # each one's samples to its collation, summed and the least
+        self.batches_made = 0
+        self.batch_seconds_total = 0.0
+        self.batch_seconds_min = float("inf")
 
     def __len__(self):
         n = len(self.dataset) // self.global_batch
@@ -120,7 +123,10 @@ class BatchLoader:
                 t0 = time.perf_counter()
                 futures = submit(step)
                 batch = _collate([f.result() for f in futures])
-                self.batch_seconds.append(time.perf_counter() - t0)
+                seconds = time.perf_counter() - t0
+                self.batch_seconds_total += seconds
+                self.batch_seconds_min = min(self.batch_seconds_min, seconds)
+                self.batches_made += 1
                 q.put(batch)
             q.put(None)
 

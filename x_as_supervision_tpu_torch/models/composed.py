@@ -57,6 +57,11 @@ Under tensor parallelism "the ranks" are the data ranks: the model ranks
 of one data index hold the same rows and compute every loss alike on the
 whole tensors that the modules gather (parallel/tp.py), so nothing here
 is split over channels.
+
+Under a profiler each module call is a span (spans.py:
+``xas.model.detector``, ``.physique``, ``.discriminator``), as are the
+line render (``xas.loss.render``) and each loss block of the generator
+(``xas.loss.<name>``, its key in the loss dict).
 """
 
 from __future__ import annotations
@@ -67,10 +72,12 @@ from typing import Any
 
 import torch
 
+from .. import spans as X
 from ..ops import geometry as G
 from ..ops import losses as L
 from ..parallel import collectives as C
 from ..parallel import mesh
+from ..spans import span
 from .remat import checkpoint
 
 
@@ -154,14 +161,15 @@ def _detector_apply(spec: GanSpec, imgs, force_remat: bool = False):
     and a gradient is being recorded; `force_remat` (the pseudo stream
     under ``pseudo``) makes the whole forward one region."""
     det = spec.detector
-    if not (det.training and torch.is_grad_enabled()):
+    with span(X.DETECTOR):
+        if not (det.training and torch.is_grad_enabled()):
+            return det(imgs)
+        if spec.remat_mode == "head_decode":
+            return checkpoint(functools.partial(det, stage="tail"),
+                              det(imgs, stage="features"))
+        if spec.remat_mode == "full" or force_remat:
+            return checkpoint(det, imgs)
         return det(imgs)
-    if spec.remat_mode == "head_decode":
-        return checkpoint(functools.partial(det, stage="tail"),
-                          det(imgs, stage="features"))
-    if spec.remat_mode == "full" or force_remat:
-        return checkpoint(det, imgs)
-    return det(imgs)
 
 
 def _render(spec: GanSpec, kps2d, side: int):
@@ -252,8 +260,9 @@ def _rows(nc: int, b: int, rep: int, device):
 
 
 def _disc(spec: GanSpec, poses, generator, rows=None):
-    return spec.discriminator(poses[..., : spec.disc_sup_dim], generator,
-                              rows)
+    with span(X.DISCRIMINATOR):
+        return spec.discriminator(poses[..., : spec.disc_sup_dim], generator,
+                                  rows)
 
 
 def _rotated(poses, generator, rot_u, rows=None):
@@ -333,88 +342,96 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
 
     # one line render over all cameras, hypothesis 0's x, y
     kps2d = kps_all[:, :, 0, :, :2].reshape(nc * b, -1, 2)
-    if spec.remat_mode == "full" and torch.is_grad_enabled():
-        masks_all = checkpoint(functools.partial(_render, spec, side=side),
-                               kps2d)
-    else:
-        masks_all = _render(spec, kps2d, side)
+    with span(X.RENDER):
+        if spec.remat_mode == "full" and torch.is_grad_enabled():
+            masks_all = checkpoint(functools.partial(_render, spec,
+                                                     side=side), kps2d)
+        else:
+            masks_all = _render(spec, kps2d, side)
     if outputs is not None:
         for i, cam in enumerate(cams):
             outputs[f"mask_heatmap_line_cam_{cam}"] = _first_nhwc(masks_all,
                                                                   i, b)
 
     if "symmetry_loss" in cfg:
-        w = cfg["symmetry_loss"]["weight"]
-        loss_sym = 0.0
-        for i, cam in enumerate(cams):
-            if cam == "mono":
-                # the mono camera has no symmetry loss (reference
-                # modules/model.py:100-102)
-                continue
-            per_hypo = []
-            for h in range(nh):
-                kw = kps_world[cam][:, h]
-                val = (L.compute_bone_sym_loss(kw) * w["bone"]
-                       + L.compute_kp_sym_loss(kw) * w["kp"])
-                if "kp_2d" in w:
-                    val = val + (L.compute_kp_sym_loss(
-                        kps_all[i, :, h, :, :2], is_3d=False) * 1e2
-                        * w["kp_2d"])
-                per_hypo.append(val)
-            loss_sym = loss_sym + _min_over_hypos(
-                C.data_share(torch.stack(per_hypo)))
-        if not torch.is_tensor(loss_sym):
-            # a sum over no camera: a tensor on the step's device, for the
-            # trainer's one packed fetch of the metrics
-            loss_sym = torch.zeros((), device=imgs.device)
-        losses["symmetry"] = loss_sym
+        with span(X.LOSS_SYMMETRY):
+            w = cfg["symmetry_loss"]["weight"]
+            loss_sym = 0.0
+            for i, cam in enumerate(cams):
+                if cam == "mono":
+                    # the mono camera has no symmetry loss (reference
+                    # modules/model.py:100-102)
+                    continue
+                per_hypo = []
+                for h in range(nh):
+                    kw = kps_world[cam][:, h]
+                    val = (L.compute_bone_sym_loss(kw) * w["bone"]
+                           + L.compute_kp_sym_loss(kw) * w["kp"])
+                    if "kp_2d" in w:
+                        val = val + (L.compute_kp_sym_loss(
+                            kps_all[i, :, h, :, :2], is_3d=False) * 1e2
+                            * w["kp_2d"])
+                    per_hypo.append(val)
+                loss_sym = loss_sym + _min_over_hypos(
+                    C.data_share(torch.stack(per_hypo)))
+            if not torch.is_tensor(loss_sym):
+                # a sum over no camera: a tensor on the step's device, for
+                # the trainer's one packed fetch of the metrics
+                loss_sym = torch.zeros((), device=imgs.device)
+            losses["symmetry"] = loss_sym
 
     if "smpl_gen_loss" in cfg and spec.discriminator is not None:
-        # root-centered world poses in m, all cams x hypos in one forward,
-        # detached: the gradient reaches only the discriminator
-        pw = torch.stack([kps_world[c] for c in cams])  # (C, B, H, K, 3)
-        pw = (pw - pw[:, :, :, :1, :]) / 1000.0
-        flat = pw.reshape(nc * b * nh, *pw.shape[3:])
-        rows = _rows(nc, b, nh, flat.device)
-        logits = _disc(spec, flat.detach(), generator, rows).reshape(
-            nc * b, nh, 1)
-        if not spec.use_aug:
-            loss_gen = L.compute_disc_loss(logits, None) * nc
-        else:
-            # the rotated branch is not detached, as in the JAX package: it
-            # alone carries a gradient into the detector
-            rot = _rotated(flat, generator, rot_u, rows)
-            logits_rot = _disc(spec, rot, generator, rows).reshape(
+        with span(X.LOSS_SMPL_GEN):
+            # root-centered world poses in m, all cams x hypos in one
+            # forward, detached: the gradient reaches only the discriminator
+            pw = torch.stack([kps_world[c] for c in cams])  # (C, B, H, K, 3)
+            pw = (pw - pw[:, :, :, :1, :]) / 1000.0
+            flat = pw.reshape(nc * b * nh, *pw.shape[3:])
+            rows = _rows(nc, b, nh, flat.device)
+            logits = _disc(spec, flat.detach(), generator, rows).reshape(
                 nc * b, nh, 1)
-            loss_gen = (L.compute_disc_loss(logits, None) * nc * 0.7
-                        + L.compute_disc_loss(logits_rot, None) * nc * 0.3)
-        losses["smpl_gen"] = (C.data_share(loss_gen)
-                              * cfg["smpl_gen_loss"]["weight"])
+            if not spec.use_aug:
+                loss_gen = L.compute_disc_loss(logits, None) * nc
+            else:
+                # the rotated branch is not detached, as in the JAX package:
+                # it alone carries a gradient into the detector
+                rot = _rotated(flat, generator, rot_u, rows)
+                logits_rot = _disc(spec, rot, generator, rows).reshape(
+                    nc * b, nh, 1)
+                loss_gen = (L.compute_disc_loss(logits, None) * nc * 0.7
+                            + L.compute_disc_loss(logits_rot, None) * nc
+                            * 0.3)
+            losses["smpl_gen"] = (C.data_share(loss_gen)
+                                  * cfg["smpl_gen_loss"]["weight"])
 
     if "smpl_pseudo_img_loss" in cfg:
-        decode_p = _detector_apply(
-            spec, _nchw(_stack(batch, cams, "pseudo_img")),
-            force_remat=spec.remat_mode == "pseudo")
-        pred_all = decode_p.kps.reshape(nc, b, nh, *decode_p.kps.shape[2:])
-        h0w = cfg["smpl_pseudo_img_loss"].get("hypo0_weight", 0.0)
-        loss_pseudo = 0.0
-        for i, cam in enumerate(cams):
-            gt = batch[f"cam_{cam}_pseudo_joints"]
-            if outputs is not None:
-                ck = f"cam_{cam}"
-                with torch.no_grad():
-                    pred0 = pred_all[i, :1, 0].detach()
-                    outputs[f"pose_2d_pred_{ck}_pseudo"] = pred0
-                    outputs[f"pose_3d_pred_{ck}_pseudo"] = _mono_world(pred0)
-                    outputs[f"pose_3d_gt_{ck}_pseudo"] = _mono_world(gt[:1])
-            per_hypo = C.data_share(torch.stack([
-                L.compute_supervision(pred_all[i, :, h], gt)
-                for h in range(nh)]))
-            loss_pseudo = loss_pseudo + _min_over_hypos(per_hypo)
-            if h0w:
-                loss_pseudo = loss_pseudo + h0w * per_hypo[0]
-        losses["smpl_pseudo_img"] = (loss_pseudo
-                                     * cfg["smpl_pseudo_img_loss"]["weight"])
+        with span(X.LOSS_SMPL_PSEUDO_IMG):
+            decode_p = _detector_apply(
+                spec, _nchw(_stack(batch, cams, "pseudo_img")),
+                force_remat=spec.remat_mode == "pseudo")
+            pred_all = decode_p.kps.reshape(nc, b, nh,
+                                            *decode_p.kps.shape[2:])
+            h0w = cfg["smpl_pseudo_img_loss"].get("hypo0_weight", 0.0)
+            loss_pseudo = 0.0
+            for i, cam in enumerate(cams):
+                gt = batch[f"cam_{cam}_pseudo_joints"]
+                if outputs is not None:
+                    ck = f"cam_{cam}"
+                    with torch.no_grad():
+                        pred0 = pred_all[i, :1, 0].detach()
+                        outputs[f"pose_2d_pred_{ck}_pseudo"] = pred0
+                        outputs[f"pose_3d_pred_{ck}_pseudo"] = \
+                            _mono_world(pred0)
+                        outputs[f"pose_3d_gt_{ck}_pseudo"] = \
+                            _mono_world(gt[:1])
+                per_hypo = C.data_share(torch.stack([
+                    L.compute_supervision(pred_all[i, :, h], gt)
+                    for h in range(nh)]))
+                loss_pseudo = loss_pseudo + _min_over_hypos(per_hypo)
+                if h0w:
+                    loss_pseudo = loss_pseudo + h0w * per_hypo[0]
+            losses["smpl_pseudo_img"] = (
+                loss_pseudo * cfg["smpl_pseudo_img_loss"]["weight"])
 
     gt_masks = _nchw(_stack(batch, cams, "mask"))
 
@@ -424,29 +441,33 @@ def generator_forward(spec: GanSpec, batch: dict, generator=None,
         return _nchw(_stack(batch, cams, "geodesic_dis")) if use else None
 
     if "physique_recons_loss" in cfg and spec.physique is not None:
-        phy_all = spec.physique(masks_all)
-        if outputs is not None:
-            for i, cam in enumerate(cams):
-                outputs[f"mask_physique_cam_{cam}"] = _first_nhwc(phy_all, i,
-                                                                  b)
-        loss_phy = C.data_share(L.compute_mask_reconstruction_loss(
-            phy_all, gt_masks, weight=dis_map("physique_recons_loss"))) * nc
-        losses["physique_recons"] = (loss_phy
-                                     * cfg["physique_recons_loss"]["weight"])
+        with span(X.LOSS_PHYSIQUE_RECONS):
+            with span(X.PHYSIQUE):
+                phy_all = spec.physique(masks_all)
+            if outputs is not None:
+                for i, cam in enumerate(cams):
+                    outputs[f"mask_physique_cam_{cam}"] = _first_nhwc(
+                        phy_all, i, b)
+            loss_phy = C.data_share(L.compute_mask_reconstruction_loss(
+                phy_all, gt_masks,
+                weight=dis_map("physique_recons_loss"))) * nc
+            losses["physique_recons"] = (
+                loss_phy * cfg["physique_recons_loss"]["weight"])
 
     if "recons_loss" in cfg:
-        # per-camera scalars, then the sum: with use_clip the loss is a
-        # product of two per-camera means, so cameras cannot be folded
-        weight = dis_map("recons_loss")
-        loss_rec = 0.0
-        for i in range(nc):
-            sl = slice(i * b, (i + 1) * b)
-            loss_rec = loss_rec + C.data_share(
-                L.compute_mask_reconstruction_loss(
-                    masks_all[sl], gt_masks[sl],
-                    weight=None if weight is None else weight[sl],
-                    use_clip=True))
-        losses["reconstruction"] = loss_rec * cfg["recons_loss"]["weight"]
+        with span(X.LOSS_RECONSTRUCTION):
+            # per-camera scalars, then the sum: with use_clip the loss is a
+            # product of two per-camera means, so cameras cannot be folded
+            weight = dis_map("recons_loss")
+            loss_rec = 0.0
+            for i in range(nc):
+                sl = slice(i * b, (i + 1) * b)
+                loss_rec = loss_rec + C.data_share(
+                    L.compute_mask_reconstruction_loss(
+                        masks_all[sl], gt_masks[sl],
+                        weight=None if weight is None else weight[sl],
+                        use_clip=True))
+            losses["reconstruction"] = loss_rec * cfg["recons_loss"]["weight"]
 
     return losses, decode
 
@@ -465,7 +486,7 @@ def discriminator_forward(spec: GanSpec, batch: dict, generator=None,
     nc = len(cams)
     decode = precomputed_decode
     if decode is None:
-        with torch.no_grad():
+        with torch.no_grad(), span(X.DETECTOR):
             decode = spec.detector(_nchw(_stack(batch, cams, "img")))
     pred = decode.kps.detach()  # (CB, H, K, 3)
     cb, nh = pred.shape[:2]

@@ -10,7 +10,8 @@ running statistics are an output of the checkpointed function and move
 once. Here the recompute runs inside ``recomputing()``'s context, which
 ``checkpoint`` enters through its ``context_fn`` on the thread that
 recomputes, and models/resnet.py:update_running_stats leaves the running
-statistics alone while it is set. The batch statistics that normalize are
+statistics alone while it is set; it also opens the recompute's span,
+``xas.remat.recompute`` (spans.py). The batch statistics that normalize are
 recomputed as before. Collectives in a region (the synced statistics, the
 tensor-parallel gathers) are issued again in the recompute, as
 ``jax.checkpoint`` reissues them: every rank recomputes the same regions in
@@ -24,6 +25,8 @@ import threading
 
 from torch.utils import checkpoint as _ckpt
 
+from ..spans import RECOMPUTE, span
+
 _state = threading.local()
 
 
@@ -36,7 +39,8 @@ def recomputing() -> bool:
 def _recompute():
     _state.depth = getattr(_state, "depth", 0) + 1
     try:
-        yield
+        with span(RECOMPUTE):
+            yield
     finally:
         _state.depth -= 1
 

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..spans import BACKWARD, CONV3X3, span
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC = "tensor_core"
@@ -193,30 +194,32 @@ class _Conv3x3(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        stride = ctx.stride
-        g = channels_last(g.to(x.dtype))
-        wc = w.to(x.dtype)
-        dx = None
-        if ctx.needs_input_grad[0] and stride == 1:
-            wt = wc.flip(2, 3).transpose(0, 1)  # (Cin, Cout, 3, 3)
-            dx = conv3x3_kernel(g, wt, None, 1)
-        mask = [ctx.needs_input_grad[0] and stride != 1,
-                ctx.needs_input_grad[1], False]
-        gx, gw, _ = torch.ops.aten.convolution_backward(
-            g, x, wc, None, [stride, stride], [1, 1], [1, 1], False, [0, 0],
-            1, mask)
-        if mask[0]:
-            dx = gx
-        dw = gw.to(w.dtype) if gw is not None else None
-        db = (g.to(torch.promote_types(g.dtype, torch.float32)).sum(
-            dim=(0, 2, 3)) if ctx.needs_input_grad[2] else None)
-        return dx, dw, db, None
+        with span(CONV3X3 + BACKWARD):
+            x, w = ctx.saved_tensors
+            stride = ctx.stride
+            g = channels_last(g.to(x.dtype))
+            wc = w.to(x.dtype)
+            dx = None
+            if ctx.needs_input_grad[0] and stride == 1:
+                wt = wc.flip(2, 3).transpose(0, 1)  # (Cin, Cout, 3, 3)
+                dx = conv3x3_kernel(g, wt, None, 1)
+            mask = [ctx.needs_input_grad[0] and stride != 1,
+                    ctx.needs_input_grad[1], False]
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, wc, None, [stride, stride], [1, 1], [1, 1], False,
+                [0, 0], 1, mask)
+            if mask[0]:
+                dx = gx
+            dw = gw.to(w.dtype) if gw is not None else None
+            db = (g.to(torch.promote_types(g.dtype, torch.float32)).sum(
+                dim=(0, 2, 3)) if ctx.needs_input_grad[2] else None)
+            return dx, dw, db, None
 
 
 def conv3x3(x, w, bias, stride: int = 1):
     """Differentiable 3x3 SAME conv with bias (see the module docstring)."""
-    return _Conv3x3.apply(x, w, bias, stride)
+    with span(CONV3X3):
+        return _Conv3x3.apply(x, w, bias, stride)
 
 
 def _lib():

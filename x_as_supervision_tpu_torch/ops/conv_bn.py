@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..spans import BACKWARD, CONV_BN_LINK, span
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -193,21 +194,23 @@ class _FusedLink(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gstats):
-        x, w, scale, shift, y = ctx.saved_tensors
-        if gy is None:
-            gy = torch.zeros_like(y)
-        if gstats is None:
-            gstats = torch.zeros((2, w.shape[0]), dtype=torch.float32,
-                                 device=y.device)
-        return fused_link_backward(x, w, scale, shift, y, gy, gstats)
+        with span(CONV_BN_LINK + BACKWARD):
+            x, w, scale, shift, y = ctx.saved_tensors
+            if gy is None:
+                gy = torch.zeros_like(y)
+            if gstats is None:
+                gstats = torch.zeros((2, w.shape[0]), dtype=torch.float32,
+                                     device=y.device)
+            return fused_link_backward(x, w, scale, shift, y, gy, gstats)
 
 
 def fused_link(x, w, scale, shift):
     """The differentiable link (the JAX package's conv_bn_pallas.fused_link):
     ``fused_bn_relu_conv`` forward, ``fused_link_backward`` backward."""
-    if not torch.is_grad_enabled():
-        return fused_bn_relu_conv(x, w, scale, shift)
-    return _FusedLink.apply(x, w, scale, shift)
+    with span(CONV_BN_LINK):
+        if not torch.is_grad_enabled():
+            return fused_bn_relu_conv(x, w, scale, shift)
+        return _FusedLink.apply(x, w, scale, shift)
 
 
 def make_stats_fold(stats, gamma, beta, n: int, eps: float = 1e-5):

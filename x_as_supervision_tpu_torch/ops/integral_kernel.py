@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from ..spans import BACKWARD, INTEGRAL_MARGINALS, span
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -240,19 +241,21 @@ class _Marginals(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gx, gy, gz, _gm, _gz):
-        logits, m, z, ax, ay, az = ctx.saved_tensors
-        gx, gy, gz = (torch.zeros_like(a) if g is None else g
-                      for g, a in ((gx, ax), (gy, ay), (gz, az)))
-        return marginals_backward(logits, m, z, ax, ay, az, gx, gy, gz,
-                                  ctx.num_joints), None
+        with span(INTEGRAL_MARGINALS + BACKWARD):
+            logits, m, z, ax, ay, az = ctx.saved_tensors
+            gx, gy, gz = (torch.zeros_like(a) if g is None else g
+                          for g, a in ((gx, ax), (gy, ay), (gz, az)))
+            return marginals_backward(logits, m, z, ax, ay, az, gx, gy, gz,
+                                      ctx.num_joints), None
 
 
 def marginals(logits: torch.Tensor, num_joints: int):
     """Differentiable marginals (ax, ay, az, m, Z) of (B, K*D, H, W) logits:
     ``integral_marginals`` forward, ``marginals_backward`` backward."""
-    if not (torch.is_grad_enabled() and logits.requires_grad):
-        return integral_marginals(logits, num_joints)
-    return _Marginals.apply(logits, num_joints)
+    with span(INTEGRAL_MARGINALS):
+        if not (torch.is_grad_enabled() and logits.requires_grad):
+            return integral_marginals(logits, num_joints)
+        return _Marginals.apply(logits, num_joints)
 
 
 def marginals_kernel_info(plan: MarginalsPlan, d: int, h: int,

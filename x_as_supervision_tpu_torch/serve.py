@@ -8,7 +8,10 @@ pixels; ``lift_to_world`` takes them to world mm given calibration.
 
 It runs on the CUDA device unless the caller passes ``device="cpu"``; asking
 for the card where there is none raises. On the card the detector's decode
-and its fused BN->ReLU->conv3x3 links run the port's CUDA kernels.
+and its fused BN->ReLU->conv3x3 links run the port's CUDA kernels. Under a
+profiler a call is the span ``xas.serve.request``, its stages (the copy to
+the device, preprocess, the forward, the fetch that waits on the device,
+the pixel arithmetic) spans within it (spans.py).
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import spans as X
 from . import weights
 from .models.detector import build_detector
 from .ops import geometry as G
+from .spans import span
 
 
 @dataclass
@@ -91,18 +96,26 @@ class PoseEstimator:
     @torch.inference_mode()
     def __call__(self, images: np.ndarray) -> PoseResult:
         """Run the detector over N pre-cropped (N, S, S, 3) patches."""
-        images = torch.as_tensor(np.asarray(images))
-        outs = []
-        for start in range(0, images.shape[0], self.batch_size):
-            chunk = images[start:start + self.batch_size].to(self.device)
-            outs.append(self.detector(self.preprocess(chunk)).kps.float())
-        kps = torch.cat(outs).cpu().numpy()
+        with span(X.SERVE_REQUEST):
+            images = torch.as_tensor(np.asarray(images))
+            outs = []
+            for start in range(0, images.shape[0], self.batch_size):
+                with span(X.SERVE_COPY):
+                    chunk = images[start:start + self.batch_size].to(
+                        self.device)
+                with span(X.SERVE_PREPROCESS):
+                    x = self.preprocess(chunk)
+                with span(X.SERVE_FORWARD):
+                    outs.append(self.detector(x).kps.float())
+            with span(X.SERVE_FETCH):
+                kps = torch.cat(outs).cpu().numpy()
 
-        pixels = kps.copy()
-        pixels[..., 0] = (pixels[..., 0] + 1) / 2 * (self.patch - 1)
-        pixels[..., 1] = (pixels[..., 1] + 1) / 2 * (self.patch - 1)
-        pixels[..., 2] = pixels[..., 2] * (self.patch - 1)
-        return PoseResult(kps_patch=kps, kps_pixels=pixels)
+            with span(X.SERVE_POSTPROCESS):
+                pixels = kps.copy()
+                pixels[..., 0] = (pixels[..., 0] + 1) / 2 * (self.patch - 1)
+                pixels[..., 1] = (pixels[..., 1] + 1) / 2 * (self.patch - 1)
+                pixels[..., 2] = pixels[..., 2] * (self.patch - 1)
+            return PoseResult(kps_patch=kps, kps_pixels=pixels)
 
     @torch.inference_mode()
     def lift_to_world(self, kps_patch: np.ndarray, cam: dict) -> np.ndarray:

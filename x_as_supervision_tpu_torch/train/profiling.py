@@ -4,7 +4,15 @@ package's train/profiling.py:
   * ``train_params.profile: {start_step, num_steps}`` captures a
     torch.profiler trace (host and, where there is a card, CUDA activity)
     of those steps and writes it as a Chrome trace (viewable in Perfetto or
-    chrome://tracing) into <run_dir>/profile;
+    chrome://tracing) into <run_dir>/profile. The trace holds the port's
+    named spans (spans.py) beside the kernels: each step's
+    ``xas.train.step`` and its phases (``xas.train.preprocess``,
+    ``.gen_forward``, ``.gen_backward``, ``.disc_forward``,
+    ``.disc_backward``, ``.allreduce``, ``.optimizer``, ``.metrics``), the
+    modules and losses within them (``xas.model.*``, ``xas.loss.*``), the
+    remat recompute (``xas.remat.recompute``) and each kernel op's forward
+    and backward (``xas.op.*``) on the autograd engine's thread, and the
+    trainer's wait on the loader (``xas.loader.wait``);
   * StepTimer keeps an online step-time EMA and writes it to TensorBoard
     (``meta/step_time_ms``, ``meta/images_per_sec``).
 """

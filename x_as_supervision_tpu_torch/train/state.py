@@ -37,14 +37,22 @@ elementwise as ever; the flat all-reduce sums over the data ranks only (a
 shard's gradient is local to its model rank), and the replicated
 gradients and running statistics are taken from model rank 0
 (``tp.sync_replicated``).
+
+Under a profiler a call is the span ``xas.train.step``, and its phases are
+spans within it (spans.py): preprocess, gen_forward and gen_backward,
+disc_forward and disc_backward, allreduce (the flat all-reduce and the
+replicated sync), optimizer (both Adams, the carry, the zero fills) and
+metrics.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import spans as X
 from ..parallel import collectives as C
 from ..parallel import tp
+from ..spans import span
 
 from ..models.composed import (
     GanSpec,
@@ -147,10 +155,12 @@ def _grads(loss, params):
 
 def _gen_losses(state: TrainState, batch, generator, outputs=None,
                 rot_u=None):
-    losses, decode = generator_forward(state.spec, batch, generator, outputs,
-                                       rot_u)
-    total = sum(v.mean() for v in losses.values())
-    grads = _grads(total, state.gen_params + state.disc_params)
+    with span(X.GEN_FORWARD):
+        losses, decode = generator_forward(state.spec, batch, generator,
+                                           outputs, rot_u)
+        total = sum(v.mean() for v in losses.values())
+    with span(X.GEN_BACKWARD):
+        grads = _grads(total, state.gen_params + state.disc_params)
     n = len(state.gen_params)
     return total, losses, decode, grads[:n], grads[n:]
 
@@ -199,49 +209,69 @@ def train_step(state: TrainState, batch: dict,
     JAX package merges them. `generator` drives the discriminators'
     dropout and use_aug's rotations; `rot_draws` ({"gen": u, "disc": u})
     gives the rotations' uniforms instead (models/composed.py)."""
-    spec = state.spec
-    has_disc = spec.discriminator is not None
-    batch = preprocess_batch(batch, spec)
-    rot_gen, rot_disc = ((rot_draws or {}).get(k) for k in ("gen", "disc"))
-    metrics: dict = {}
-    d_out = {} if with_outputs else None
-    g_out = {} if with_outputs else None
-    if do_disc and do_gen and has_disc and spec.fuse_gan_step:
-        # fused: generator gradients at the pre-update discriminator, then
-        # the discriminator phase on the same camera forward
-        total, losses, decode, g_gen, g_disc = _gen_losses(
-            state, batch, generator, g_out, rot_gen)
-        loss_disc = discriminator_forward(spec, batch, generator,
-                                          precomputed_decode=decode,
-                                          outputs=d_out, rot_u=rot_disc)
-        g_gen, g_disc, d_grads = C.psum_flat(
-            g_gen, g_disc, _grads(loss_disc, state.disc_params))
-        tp.sync_replicated(state, g_gen, d_grads, g_disc)
-        _update_disc(state, d_grads)
-        _update_gen(state, g_gen)
-        state.pending_disc_grads = g_disc
-        metrics = _metrics(total, losses, loss_disc)
-    else:
-        if do_disc and has_disc:
-            loss_disc = discriminator_forward(spec, batch, generator,
-                                              outputs=d_out, rot_u=rot_disc)
-            (d_grads,) = C.psum_flat(_grads(loss_disc, state.disc_params))
-            tp.sync_replicated(state, [], d_grads, [])
-            _update_disc(state, d_grads)
-            state.pending_disc_grads = [torch.zeros_like(p)
-                                        for p in state.disc_params]
-            metrics["loss_disc"] = loss_disc.detach()
-        if do_gen:
-            total, losses, _, g_gen, g_disc = _gen_losses(
+    with span(X.TRAIN_STEP):
+        spec = state.spec
+        has_disc = spec.discriminator is not None
+        with span(X.TRAIN_PREPROCESS):
+            batch = preprocess_batch(batch, spec)
+        rot_gen, rot_disc = ((rot_draws or {}).get(k)
+                             for k in ("gen", "disc"))
+        metrics: dict = {}
+        d_out = {} if with_outputs else None
+        g_out = {} if with_outputs else None
+        if do_disc and do_gen and has_disc and spec.fuse_gan_step:
+            # fused: generator gradients at the pre-update discriminator,
+            # then the discriminator phase on the same camera forward
+            total, losses, decode, g_gen, g_disc = _gen_losses(
                 state, batch, generator, g_out, rot_gen)
-            g_gen, g_disc = C.psum_flat(g_gen, g_disc)
-            tp.sync_replicated(state, g_gen, [], g_disc)
-            _update_gen(state, g_gen)
-            state.pending_disc_grads = [
-                c + g for c, g in zip(state.pending_disc_grads, g_disc)]
-            metrics.update(_metrics(total, losses))
-    state.step += 1
-    metrics = _global(metrics)
-    if with_outputs:
-        return metrics, {**d_out, **g_out}
-    return metrics
+            with span(X.DISC_FORWARD):
+                loss_disc = discriminator_forward(
+                    spec, batch, generator, precomputed_decode=decode,
+                    outputs=d_out, rot_u=rot_disc)
+            with span(X.DISC_BACKWARD):
+                d_grads = _grads(loss_disc, state.disc_params)
+            with span(X.ALLREDUCE):
+                g_gen, g_disc, d_grads = C.psum_flat(g_gen, g_disc, d_grads)
+                tp.sync_replicated(state, g_gen, d_grads, g_disc)
+            with span(X.OPTIMIZER):
+                _update_disc(state, d_grads)
+                _update_gen(state, g_gen)
+                state.pending_disc_grads = g_disc
+            with span(X.METRICS):
+                metrics = _metrics(total, losses, loss_disc)
+        else:
+            if do_disc and has_disc:
+                with span(X.DISC_FORWARD):
+                    loss_disc = discriminator_forward(
+                        spec, batch, generator, outputs=d_out,
+                        rot_u=rot_disc)
+                with span(X.DISC_BACKWARD):
+                    d_grads = _grads(loss_disc, state.disc_params)
+                with span(X.ALLREDUCE):
+                    (d_grads,) = C.psum_flat(d_grads)
+                    tp.sync_replicated(state, [], d_grads, [])
+                with span(X.OPTIMIZER):
+                    _update_disc(state, d_grads)
+                    state.pending_disc_grads = [torch.zeros_like(p)
+                                                for p in state.disc_params]
+                with span(X.METRICS):
+                    metrics["loss_disc"] = loss_disc.detach()
+            if do_gen:
+                total, losses, _, g_gen, g_disc = _gen_losses(
+                    state, batch, generator, g_out, rot_gen)
+                with span(X.ALLREDUCE):
+                    g_gen, g_disc = C.psum_flat(g_gen, g_disc)
+                    tp.sync_replicated(state, g_gen, [], g_disc)
+                with span(X.OPTIMIZER):
+                    _update_gen(state, g_gen)
+                    state.pending_disc_grads = [
+                        c + g for c, g in zip(state.pending_disc_grads,
+                                              g_disc)]
+                with span(X.METRICS):
+                    metrics.update(_metrics(total, losses))
+        state.step += 1
+        with span(X.METRICS):
+            metrics = _global(metrics)
+        if with_outputs:
+            return metrics, {**d_out, **g_out}
+        return metrics

@@ -58,12 +58,27 @@ from .. import weights
 from ..data.loader import BatchLoader
 from ..parallel import mesh, tp
 from ..serve import resolve_device
+from ..spans import LOADER_WAIT, span
 from . import checkpoint as ckpt
 from .evaluator import fetch
 from .factory import build_gan_spec
 from .logging import tb_vis
 from .profiling import Profiler, StepTimer
 from .state import TrainState, train_step
+
+
+def waited(batches):
+    """The batches of a loader's epoch, each wait for one an
+    ``xas.loader.wait`` span (spans.py)."""
+    try:
+        while True:
+            with span(LOADER_WAIT):
+                batch = next(batches, None)
+            if batch is None:
+                return
+            yield batch
+    finally:
+        batches.close()
 
 
 def create_run_dir(log_root: str, config_path: str, seed: int,
@@ -227,7 +242,7 @@ class Trainer:
         last_t, last_step = time.perf_counter(), None
         try:
             for epoch in range(self.epochs_run, self.num_epochs):
-                for it, batch in enumerate(self.loader.epoch(epoch)):
+                for it, batch in enumerate(waited(self.loader.epoch(epoch))):
                     cur_step = epoch * self.steps_per_epoch + it
                     if max_steps is not None and cur_step >= max_steps:
                         return history
